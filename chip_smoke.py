@@ -8,21 +8,35 @@ Phases, each of which passes or makes the script exit non-zero:
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit, the TF32 flags (set off: float32 matmuls in full float32);
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``;
-3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes: error; device times of kernel, plain version and, for
-   attention, PyTorch's ``scaled_dot_product_attention`` as a yardstick
-   (never used by the port), each the median of 30 replays of a CUDA graph
-   of the calls between CUDA events; the bound; and the kernel's time per
-   eager call, host dispatch included;
-4. the main path: faas-bench at full width served through ``Worker.invoke``
-   on the card, forced-cold under every strategy plus a warm hit, checked
-   against a CPU worker; the kernel launch counters are zeroed just before
-   and read just after, and must show both kernels on the path;
-5. stablelm-3b at full width (depth cut to 4 layers), bfloat16, served
+3. the three kernels (snapshot_patch, flash_attention, ssd_scan) against
+   their plain PyTorch versions on the card, at their paths' shapes (each
+   path's shape listed first): error; device times of kernel, plain version
+   and, for attention, PyTorch's ``scaled_dot_product_attention`` as a
+   yardstick (never used by the port), each the median of 30 replays of a
+   CUDA graph of the calls between CUDA events; the bound; and the kernel's
+   time per eager call, host dispatch included;
+4. the dense main path: faas-bench at full width served through
+   ``Worker.invoke`` on the card, forced-cold under every strategy plus a
+   warm hit, checked against a CPU worker; the kernel launch counters are
+   zeroed just before and read just after, and must show patch and flash
+   on the path;
+5. stablelm-3b at full width (depth cut to 2 layers), bfloat16, served
    through ``Worker.invoke``;
-6. the ``repro_torch.launch.serve`` entry point: the cluster on threads;
-7. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last the
+6. the SSM path: mamba2-780m at full width (depth cut to 8 layers),
+   bfloat16, three delta-uploaded functions served through
+   ``Worker.invoke`` with 1024-token requests (4 SSD chunks), forced-cold
+   ``regular`` and ``snapfaas`` plus a warm hit; counters zeroed just
+   before and read just after must show ``ssd_scan`` once per layer per
+   forward, no flash, and patch launches; one function checked against a
+   CPU worker; then the same model in float32, every logits row of a
+   1024-token forward against the CPU, where a forward without the
+   carried state must fail;
+7. the ``repro_torch.launch.serve`` entry point: the cluster on threads;
+8. the ``{"kernels": [...]}`` summary (each kernel with its own path's
+   launches), the ``nvidia-smi`` line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+About 3 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -73,7 +87,7 @@ class Ctx:
 
     def __init__(self):
         self.cases = []           # one dict per kernel x shape
-        self.launches = {}        # main-path launch counts
+        self.launches = {}        # per kernel: launches on its path's run
         self.card = ""
 
 
@@ -298,6 +312,58 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
     emit(case)
 
 
+def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype):
+    from repro_torch.kernels.ssd import ssd_ref, ssd_scan
+
+    dev = torch.device("cuda")
+    # x, B, C as the mixer hands them over: strided views into one xBC
+    d_in = nh * hd
+    xbc = torch.randn((b, l, d_in + 2 * ds), generator=gen, device=dev).to(dtype)
+    x = xbc[..., :d_in].reshape(b, l, nh, hd)
+    B, C = xbc[..., d_in:d_in + ds], xbc[..., d_in + ds:]
+    dt = torch.rand((b, l, nh), generator=gen, device=dev) * 0.49 + 0.01
+    A = -(torch.rand((nh,), generator=gen, device=dev) * 1.5 + 0.5)
+    D = torch.randn((nh,), generator=gen, device=dev)
+    args = (x, dt, A, B, C, D)
+    y, st = ssd_scan(*args, chunk=chunk)
+    y_ref, st_ref = ssd_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    dname = str(dtype).replace("torch.", "")
+    tol = TOL[dname]
+    dy = (y.float() - y_ref.float()).abs()
+    dst = (st - st_ref).abs()
+    err, err_state = float(dy.max()), float(dst.max())
+    if not bool((dy <= tol["atol"] + tol["rtol"] * y_ref.float().abs()).all()):
+        fail(f"ssd_scan {label}: y max abs err {err} outside {tol}")
+    if not bool((dst <= 1e-3 + 1e-3 * st_ref.abs()).all()):
+        fail(f"ssd_scan {label}: state max abs err {err_state} outside 1e-3")
+    # x was just written by the conv: L2-resident, one input set replayed
+    kernel_ms = device_ms(torch, [lambda: ssd_scan(*args, chunk=chunk)])
+    plain_ms = device_ms(torch, [lambda: ssd_ref(*args, chunk=chunk)])
+    c = min(chunk, l)
+    # what the function needs: the causal half of C.B^T once per (batch,
+    # chunk), as every head shares B and C; per (batch, head, chunk) the
+    # causal half of the scores x dt.x product, and the C.state and state
+    # update products.  (The kernel recomputes C.B^T for every head.)
+    ops = (float(b * (l // c)) * c * (c + 1) * ds
+           + float(b * nh * (l // c)) * (c * (c + 1) * hd + 4 * c * hd * ds))
+    e = x.element_size()
+    nbytes = (2 * b * l * d_in * e + 2 * b * l * ds * e + 4 * b * l * nh
+              + 2 * 4 * nh + 4 * b * nh * hd * ds)
+    t_ops = ops / PEAK_OPS[dname] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"kernel": "ssd_scan", "case": label, "dtype": dname, "b": b, "l": l,
+            "nh": nh, "hd": hd, "ds": ds, "chunk": chunk, "max_abs_err": err,
+            "state_max_abs_err": err_state, "kernel_ms": kernel_ms,
+            "eager_ms": eager_ms(torch, lambda: ssd_scan(*args, chunk=chunk)),
+            "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+    ctx.cases.append(case)
+    emit(case)
+
+
 def phase_kernels(ctx, torch, rt):
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16, i32, u8 = torch.float32, torch.bfloat16, torch.int32, torch.uint8
@@ -331,14 +397,24 @@ def phase_kernels(ctx, torch, rt):
         flash_case(ctx, torch, gen, "softcap 20", 1, 6, 6, 256, 64, dt, softcap=20.0)
     flash_case(ctx, torch, gen, "bidirectional, ragged", 2, 4, 2, 77, 80, f32, causal=False)
 
+    # the SSM path's case first: mamba2-780m, 1024-token request, 4 chunks
+    m2 = dict(nh=48, hd=64, ds=128, chunk=256)
+    ssd_case(ctx, torch, gen, "mamba2-780m l=1024", 1, 1024, dtype=bf16, **m2)
+    ssd_case(ctx, torch, gen, "mamba2-780m l=256 (one chunk)", 1, 256, dtype=bf16, **m2)
+    ssd_case(ctx, torch, gen, "mamba2-780m l=1024", 1, 1024, dtype=f32, **m2)
+    ssd_case(ctx, torch, gen, "mamba2-780m l=1024 b=2", 2, 1024, dtype=bf16, **m2)
+    for dt in (f32, bf16):  # tests/test_kernels.py's mamba2-like tile
+        ssd_case(ctx, torch, gen, "b=2 l=64 nh=4 chunk=64", 2, 64, 4, 64, 128, 64, dt)
+
 
 # --------------------------------------------------------------- phases 4-6
 
 def _counters():
-    from repro_torch.kernels import flash_attention, snapshot_patch
+    from repro_torch.kernels import flash_attention, snapshot_patch, ssd
 
     return {"snapshot_patch": snapshot_patch.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd.launches}
 
 
 def _reset():
@@ -412,7 +488,7 @@ def phase_faas(ctx, torch, rt):
         emit({"phase": "faas", "function": s.name, "gpu_vs_cpu_max_abs_err": err,
               "tolerance": "rtol 1e-4, atol 1e-4"})
     counts = _read()                                # main path ends here
-    ctx.launches = counts
+    ctx.launches.update({k: counts[k] for k in ("snapshot_patch", "flash_attention")})
     emit({"phase": "faas", "launches": counts, "forwards": forwards,
           "patch_launches_in_snapfaas_cold_starts": patch_in_snapfaas})
     if patch_in_snapfaas <= 0:
@@ -429,7 +505,7 @@ def phase_stablelm(ctx, torch, rt):
     from repro_torch.serving.trace import build_functions, request_tokens
 
     full = get_config("stablelm-3b")
-    cfg = dataclasses.replace(full, num_layers=4)
+    cfg = dataclasses.replace(full, num_layers=2)
     emit({"phase": "stablelm", "cut": f"num_layers {full.num_layers} -> {cfg.num_layers}",
           "d_model": cfg.d_model, "heads": cfg.num_heads, "head_dim": cfg.head_dim,
           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype})
@@ -465,6 +541,143 @@ def phase_stablelm(ctx, torch, rt):
         fail("stablelm-3b: flash launches != layers x forwards")
 
 
+def phase_mamba2(ctx, torch, rt):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_flat, params_to_flat
+    from repro_torch.models import Batch, build_model
+    from repro_torch.serving import Worker
+    from repro_torch.serving.trace import build_delta_specs, request_tokens
+
+    full = get_config("mamba2-780m")
+    cfg = dataclasses.replace(full, num_layers=8)
+    seq = 1024                      # 4 chunks of 256: the state carry runs
+    emit({"phase": "mamba2", "cut": f"num_layers {full.num_layers} -> {cfg.num_layers}",
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner, "ssm_heads": cfg.ssm_heads,
+          "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+          "ssm_conv": cfg.ssm_conv, "ssm_chunk": cfg.ssm_chunk, "vocab": cfg.vocab_size,
+          "tied": cfg.tie_embeddings, "dtype": cfg.dtype, "params": cfg.param_count(),
+          "request_tokens": seq})
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    worker = Worker(os.path.join(rt, "mamba2", "worker"), device="cuda")
+    base = model.init(0, device="cuda")
+    worker.register_runtime(cfg.name, model, base)
+    specs = build_delta_specs(os.path.join(rt, "mamba2"), cfg, params_to_flat(base))
+    for spec in specs:
+        worker.register_function(spec)
+    emit({"phase": "mamba2", "setup_s": time.perf_counter() - t0})
+    toks = {s.name: request_tokens(s, np.random.default_rng(5), cfg.vocab_size, seq=seq)
+            for s in specs}
+    forwards = 0
+    regular = {}
+    _reset()                                        # SSM path starts here
+    for s in specs:
+        outs = {}
+        for strat in ("regular", "snapfaas"):
+            r = _invoke(worker, s.name, toks[s.name], strat, True)
+            forwards += 1
+            outs[strat] = r.output
+            emit({"phase": "mamba2", "function": s.name, "strategy": strat,
+                  "resolved": str(r.strategy), "cold": r.cold,
+                  "boot_s": r.boot_s, "exec_s": r.exec_s})
+        w = _invoke(worker, s.name, toks[s.name], "snapfaas", False)
+        forwards += 1
+        if w.cold:
+            fail(f"mamba2-780m {s.name}: the warm hit was cold")
+        emit({"phase": "mamba2", "function": s.name, "strategy": "warm",
+              "cold": False, "exec_s": w.exec_s})
+        outs["warm"] = w.output
+        for k, o in outs.items():
+            if o.shape != (1, 8) or not np.isfinite(o).all():
+                fail(f"mamba2-780m {s.name} {k}: output {o.shape} not finite")
+            if not np.array_equal(o, outs["regular"]):
+                fail(f"mamba2-780m {s.name}: {k} differs from regular by "
+                     f"{float(np.abs(o - outs['regular']).max())}")
+        regular[s.name] = outs["regular"]
+    counts = _read()                                # SSM path ends here
+    ctx.launches["ssd_scan"] = counts["ssd_scan"]
+    emit({"phase": "mamba2", "launches": counts, "forwards": forwards})
+    if counts["ssd_scan"] != cfg.num_layers * forwards:
+        fail(f"mamba2-780m: ssd_scan launches {counts['ssd_scan']} != layers x "
+             f"forwards {cfg.num_layers * forwards}")
+    if counts["flash_attention"] != 0:
+        fail("mamba2-780m: flash_attention launched on an attention-free model")
+    if counts["snapshot_patch"] <= 0:
+        fail("mamba2-780m: the patch kernel never ran on the bf16 leaves")
+
+    # one function against a CPU worker (plain ssd_ref) on the same bytes
+    tol = dict(rtol=5e-2, atol=5e-2)   # bf16 rounds at other places on the CPU
+    t0 = time.perf_counter()
+    spec = specs[0]
+    base_cpu = params_from_flat(params_to_flat(base), "cpu", template=model.param_shapes())
+    cpu = Worker(os.path.join(rt, "mamba2-cpu"), device="cpu")
+    cpu.register_runtime(cfg.name, model, base_cpu)
+    cpu.register_function(dataclasses.replace(spec, resolver=None))
+    got = _invoke(cpu, spec.name, toks[spec.name], "regular", True).output
+    err = float(np.abs(regular[spec.name] - got).max())
+    emit({"phase": "mamba2", "function": spec.name, "gpu_vs_cpu_max_abs_err": err,
+          "tolerance": tol, "cpu_check_s": time.perf_counter() - t0})
+    if not np.allclose(regular[spec.name], got, **tol):
+        fail(f"mamba2-780m {spec.name}: GPU vs CPU worker differ by {err}")
+
+    # The worker's output is the last row, where exp(cs) has decayed the
+    # carried state to nothing, so it cannot see the carry; in bf16 the
+    # carry moves a chunk's first logits rows by less than the card and the
+    # CPU round apart.  So the same model in float32: every logits row of a
+    # 1024-token forward against the CPU, and a forward that drops the carry
+    # (the scan restarted from a zero state at each chunk) must fail there.
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32)
+    p32 = m32.init(0, device="cuda")
+    p32_cpu = params_from_flat(params_to_flat(p32), "cpu", template=m32.param_shapes())
+    tok = torch.from_numpy(
+        np.random.default_rng(9).integers(0, cfg.vocab_size, (1, seq), dtype=np.int32))
+    with torch.no_grad():
+        gpu_l = m32.logits(p32, Batch(tokens=tok.cuda()))[0].cpu().numpy()
+        cpu_l = m32.logits(p32_cpu, Batch(tokens=tok))[0].numpy()
+        with _ssd_without_carry():
+            no_carry = m32.logits(p32, Batch(tokens=tok.cuda()))[0].cpu().numpy()
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    c = cfg.ssm_chunk
+    starts = np.concatenate([np.arange(s, s + 16) for s in range(c, seq, c)])
+    err = float(np.abs(gpu_l - cpu_l).max())
+    emit({"phase": "mamba2", "check": "float32 logits, all rows, GPU vs CPU",
+          "max_abs_err": err, "tolerance": tol32,
+          "at_chunk_starts_max_abs_err": float(np.abs(gpu_l - cpu_l)[starts].max()),
+          "no_carry_at_chunk_starts_max_abs_err":
+              float(np.abs(no_carry - cpu_l)[starts].max()),
+          "chunk_starts": f"[s, s + 16) for s = {c}, {2 * c}, {3 * c}",
+          "seconds": time.perf_counter() - t0})
+    if not np.isfinite(gpu_l).all() or not np.allclose(gpu_l, cpu_l, **tol32):
+        fail(f"mamba2-780m float32: logits differ from the CPU by {err}")
+    if np.allclose(no_carry, cpu_l, **tol32):
+        fail("mamba2-780m float32: a forward without the carried state passes the "
+             "check: it cannot see the carry")
+
+
+@contextlib.contextmanager
+def _ssd_without_carry():
+    """The mixer's scan run chunk by chunk from a zero state (the carry
+    dropped): what a kernel that loses the state would compute."""
+    import torch
+    from repro_torch.models import ssm
+
+    op = ssm.ssd_op
+
+    def chunkwise(x, dt, A, B, C, D, *, chunk):
+        ys = [op(x[:, s:s + chunk], dt[:, s:s + chunk], A, B[:, s:s + chunk],
+                 C[:, s:s + chunk], D, chunk=chunk)[0] for s in range(0, x.shape[1], chunk)]
+        return torch.cat(ys, 1), None
+
+    ssm.ssd_op = chunkwise
+    try:
+        yield
+    finally:
+        ssm.ssd_op = op
+
+
 def phase_serve(ctx, torch, rt):
     from repro_torch.launch import serve
 
@@ -489,17 +702,19 @@ def phase_serve(ctx, torch, rt):
 
 # ------------------------------------------------------------------- summary
 
-KERNELS = {
+KERNELS = {  # source, the TPU kernel it replaces, the path its launches are read on
     "snapshot_patch": ("src/repro_torch/csrc/snapshot_patch.cu",
-                       "src/repro/kernels/snapshot_patch/kernel.py:41"),
+                       "src/repro/kernels/snapshot_patch/kernel.py:41", "faas-bench"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:101"),
+                        "src/repro/kernels/flash_attention/kernel.py:101", "faas-bench"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd/kernel.py:80", "mamba2-780m"),
 }
 
 
 def summary(ctx):
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, path) in KERNELS.items():
         cases = [c for c in ctx.cases if c["kernel"] == name and "kernel_ms" in c]
         main = cases[0]                  # the main path's shape (listed first)
         out.append({"name": name, "route": "cuda", "source": source,
@@ -508,12 +723,14 @@ def summary(ctx):
                     "ms": main["kernel_ms"], "eager_ms": main["eager_ms"],
                     "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                    "library_ms": main["library_ms"], "at": main["case"]})
+                    "library_ms": main["library_ms"], "at": main["case"],
+                    "path": path})
     emit({"kernels": out})
 
 
 PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels),
-          ("faas", phase_faas), ("stablelm", phase_stablelm), ("serve", phase_serve))
+          ("faas", phase_faas), ("stablelm", phase_stablelm), ("mamba2", phase_mamba2),
+          ("serve", phase_serve))
 
 
 def main() -> None:

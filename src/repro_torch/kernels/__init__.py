@@ -5,6 +5,8 @@ its plain PyTorch version:
   ``patch_apply``)
 * flash_attention — online-softmax attention, GQA / MQA, causal, sliding
   window, softcap (replaces the Pallas ``flash_attention``)
+* ssd             — Mamba-2 SSD chunked scan with the state carried across
+  chunks (replaces the Pallas ``ssd_scan``)
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for tensors on the CPU; it never falls back from one to the other.

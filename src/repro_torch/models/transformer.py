@@ -1,8 +1,9 @@
-"""The dense decoder-only LM as tensor functions over a nested dict of
-parameters.
+"""The decoder-only LM (dense and SSM) as tensor functions over a nested
+dict of parameters.
 
-Port of the dense path of ``repro.models.transformer``: ``init_layer``
-(attention + MLP), ``init_params``, the full-sequence ``apply_layer`` and
+Port of the dense and SSM paths of ``repro.models.transformer``:
+``init_layer`` (attention + MLP, or the mamba mixer), ``init_params``, the
+full-sequence ``apply_layer`` and
 ``apply_stack`` as a loop over the leading ``n_repeat`` axis of the
 stacked macro-block parameters.  Parameter paths, shapes and dtypes are the
 JAX package's exactly (``blocks/pos{i}/...`` stacked over ``n_repeat``), so
@@ -25,11 +26,13 @@ from . import blocks as blocks_mod
 from ..kernels.flash_attention import flash_attention_op
 from .config import LayerKind, ModelConfig
 from .layers import apply_norm, apply_rope, mlp
+from .ssm import mamba_mixer
 
 PyTree = Any
 
-#: make(shape, dtype, fill) -> tensor; fill is "normal", "zeros" or "ones"
-Maker = Callable[[tuple, torch.dtype, str], torch.Tensor]
+#: make(shape, dtype, fill[, scale]) -> tensor; fill is "normal" (× scale,
+#: 0.02 unless given), "zeros", "ones" or "log_arange" (log(1..n), 1-D)
+Maker = Callable[..., torch.Tensor]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -46,8 +49,6 @@ def unsupported(what: str, roadmap: str) -> NotImplementedError:
 def _check_supported(cfg: ModelConfig, kind: LayerKind) -> None:
     if cfg.is_encoder_decoder:
         raise unsupported("encoder-decoder (whisper)", "enc-dec / VLM / gemma-2 slice")
-    if kind.mixer != "attn":
-        raise unsupported("the mamba mixer", "SSM slice with ssd_scan")
     if kind.ffn == "moe":
         raise unsupported("the MoE FFN", "MoE slice")
 
@@ -69,10 +70,24 @@ def init_layer(cfg: ModelConfig, kind: LayerKind, make: Maker) -> PyTree:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.dtype)
     p: Dict[str, Any] = {"ln1": _norm_param(cfg, make)}
-    p["wq"] = make((D, H, hd), dt, "normal")
-    p["wk"] = make((D, KV, hd), dt, "normal")
-    p["wv"] = make((D, KV, hd), dt, "normal")
-    p["wo"] = make((H, hd, D), dt, "normal")
+    f32 = torch.float32
+    if kind.mixer == "attn":
+        p["wq"] = make((D, H, hd), dt, "normal")
+        p["wk"] = make((D, KV, hd), dt, "normal")
+        p["wv"] = make((D, KV, hd), dt, "normal")
+        p["wo"] = make((H, hd, D), dt, "normal")
+    else:
+        d_in, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        p["w_z"] = make((D, d_in), dt, "normal")
+        p["w_xBC"] = make((D, d_in + 2 * ds), dt, "normal")
+        p["w_dt"] = make((D, nh), dt, "normal")
+        p["dt_bias"] = make((nh,), f32, "zeros")
+        p["conv_w"] = make((cfg.ssm_conv, d_in + 2 * ds), f32, "normal", 0.1)
+        p["conv_b"] = make((d_in + 2 * ds,), f32, "zeros")
+        p["A_log"] = make((nh,), f32, "log_arange")
+        p["D"] = make((nh,), f32, "ones")
+        p["gate_norm"] = make((d_in,), f32, "zeros")
+        p["w_out"] = make((d_in, D), dt, "normal")
     if kind.ffn != "none":
         F = cfg.d_ff
         p["ln2"] = _norm_param(cfg, make)
@@ -109,18 +124,22 @@ def build_params(cfg: ModelConfig, make: Maker) -> PyTree:
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: torch.device = torch.device("cpu")) -> PyTree:
-    """Random weights (normal · 0.02, norms at identity) from a seeded
+    """Random weights (normal · 0.02, the SSM conv · 0.1, norms at identity,
+    the SSM's A_log, D and dt_bias as JAX sets them) from a seeded
     ``torch.Generator`` on ``device``.  They do not reproduce
     ``jax.random``'s numbers; carry JAX weights with ``convert``."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def make(shape, dtype, fill):
+    def make(shape, dtype, fill, scale=0.02):
         if fill == "zeros":
             return torch.zeros(shape, dtype=dtype, device=device)
         if fill == "ones":
             return torch.ones(shape, dtype=dtype, device=device)
+        if fill == "log_arange":
+            return torch.log(torch.arange(1, shape[0] + 1, dtype=torch.float32,
+                                          device=device)).to(dtype)
         x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-        return (x * 0.02).to(dtype)
+        return (x * scale).to(dtype)
 
     return build_params(cfg, make)
 
@@ -129,7 +148,7 @@ def param_shapes(cfg: ModelConfig) -> PyTree:
     """The parameter tree on the ``meta`` device: shapes and dtypes, no
     storage (the counterpart of ``jax.eval_shape`` over ``init``)."""
     return build_params(
-        cfg, lambda shape, dtype, fill: torch.empty(shape, dtype=dtype, device="meta"))
+        cfg, lambda shape, dtype, *fill: torch.empty(shape, dtype=dtype, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -148,20 +167,29 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
     # the residual stream h may be f32 (carry precision); compute in cfg dtype
     cdt = torch_dtype(cfg.dtype) if h.dtype == torch.float32 else h.dtype
     x = apply_norm(h, p["ln1"], cfg.norm).to(cdt)
-    window = cfg.sliding_window if kind.is_local else 0
-    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    k = torch.einsum("bld,dgk->blgk", x, p["wk"])
-    v = torch.einsum("bld,dgk->blgk", x, p["wv"])
-    if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    attn = flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
-                              window=window, softcap=cfg.attn_logit_softcap)
-    h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
+    if kind.mixer == "attn":
+        window = cfg.sliding_window if kind.is_local else 0
+        q = torch.einsum("bld,dhk->blhk", x, p["wq"])
+        k = torch.einsum("bld,dgk->blgk", x, p["wk"])
+        v = torch.einsum("bld,dgk->blgk", x, p["wv"])
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        attn = flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
+                                  window=window, softcap=cfg.attn_logit_softcap)
+        h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
+    else:  # mamba
+        h = h + mamba_mixer(p, x, cfg)
     if kind.ffn != "none":
         x2 = apply_norm(h, p["ln2"], cfg.norm).to(cdt)
         h = h + mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
     return h
+
+
+def _first_leaf(tree: PyTree) -> torch.Tensor:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def _index(tree: PyTree, r: int) -> PyTree:
@@ -173,7 +201,7 @@ def _index(tree: PyTree, r: int) -> PyTree:
 def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor, *,
                 positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """Loop over the stacked macro-blocks (the JAX ``lax.scan``)."""
-    n_repeat = blocks_params["pos0"]["wq"].shape[0]
+    n_repeat = _first_leaf(blocks_params).shape[0]
     for r in range(n_repeat):
         bp = _index(blocks_params, r)
         for i, kind in enumerate(kinds):

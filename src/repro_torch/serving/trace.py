@@ -6,6 +6,10 @@ layer, *head* functions replace the whole embedding table, *fine-tune*
 functions modify every block.  bfloat16 leaves travel as ``uint16`` bit
 patterns; their variants are computed on the values, rounded to bfloat16
 after every operation as ``ml_dtypes`` arithmetic rounds.
+
+``build_specs`` is the JAX package's, and like it needs an FFN weight for
+the adapter's "imported library"; ``build_delta_specs`` builds the same
+three kinds as deltas for a family whose blocks have none (mamba2).
 """
 
 from __future__ import annotations
@@ -79,6 +83,57 @@ def build_specs(
         specs.append(FunctionSpec(
             name=f"fn{i}-{kind}", family=cfg.name, variant=variant,
             touched=None, touched_rows=touched_rows, source_path=src,
+        ))
+    return specs
+
+
+def build_delta_specs(
+    root: str, cfg, base_flat: Dict[str, np.ndarray], *,
+    n_functions: int = 3, seed: int = 0,
+) -> List[FunctionSpec]:
+    """The paper's three kinds as shared-base uploads (``FunctionSpec.delta``
+    holds only the leaves that differ), for a family without an FFN:
+
+    * adapter: 16 embedding rows, plus the first layer of ``w_xBC`` + 0.01;
+    * head: ``embed/table`` × 1.01;
+    * fine-tune: every ``/w_out`` and ``/w_z`` + 0.005.
+    """
+    rng = np.random.default_rng(seed + 1)
+    specs: List[FunctionSpec] = []
+    kinds = ["adapter", "head", "finetune"]
+    src_dir = os.path.join(root, "sources")
+    os.makedirs(src_dir, exist_ok=True)
+    for i in range(n_functions):
+        kind = kinds[i % len(kinds)]
+        delta: Dict[str, np.ndarray] = {}
+        touched_rows: Dict[str, List[int]] = {}
+        table = base_flat["embed/table"]
+        if kind == "adapter":
+            rows = list(range(8 * i, 8 * i + 16))
+            vals, rnd = _values(table)
+            vals = np.array(vals)
+            noise = rnd(rng.standard_normal((len(rows), table.shape[1])).astype(np.float32))
+            vals[rows] = rnd(vals[rows] + rnd(noise * 0.02))
+            delta["embed/table"] = _encoded(vals, table)
+            touched_rows["embed/table"] = rows
+            key = next(k for k in base_flat if k.endswith("/w_xBC"))
+            vals, rnd = _values(base_flat[key])
+            vals = np.array(vals)
+            vals[0] = rnd(vals[0] + 0.01)  # one layer of the stacked leaf
+            delta[key] = _encoded(vals, base_flat[key])
+        elif kind == "head":
+            vals, rnd = _values(table)
+            delta["embed/table"] = _encoded(rnd(vals * 1.01), table)
+        else:  # finetune
+            for k, v in base_flat.items():
+                if k.endswith("/w_out") or k.endswith("/w_z"):
+                    vals, rnd = _values(v)
+                    delta[k] = _encoded(rnd(vals + 0.005), v)
+        src = os.path.join(src_dir, f"fn{i}.npz")
+        np.savez(src, **delta)
+        specs.append(FunctionSpec(
+            name=f"fn{i}-{kind}", family=cfg.name, delta=delta,
+            touched_rows=touched_rows, source_path=src,
         ))
     return specs
 

@@ -15,6 +15,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.convert import to_numpy
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import snapshot_patch as tpatch
+from repro_torch.kernels import ssd as tssd
 from repro_torch.models import build_model
 from repro_torch.serving import ColdStartOptions, InvocationRequest
 
@@ -115,3 +116,93 @@ def test_worker_on_cuda_launches_both_kernels(cuda, tmp_path):
     dev = inst.arrays["embed/table"]._dev
     assert dev is not None and dev.is_cuda
     np.testing.assert_array_equal(to_numpy(dev), spec.variant["embed/table"])
+
+
+def _xbc_views(cuda, b, l, nh, hd, ds, dtype, seed=3):
+    """x, B, C as the mixer hands them over: strided views into one
+    (b, l, nh·hd + 2 ds) activation."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    d_in = nh * hd
+    xbc = torch.randn((b, l, d_in + 2 * ds), generator=g, device=cuda).to(dtype)
+    x = xbc[..., :d_in].reshape(b, l, nh, hd)
+    B, C = xbc[..., d_in:d_in + ds], xbc[..., d_in + ds:]
+    dt = torch.rand((b, l, nh), generator=g, device=cuda) * 0.49 + 0.01
+    A = -(torch.rand((nh,), generator=g, device=cuda) * 1.5 + 0.5)
+    D = torch.randn((nh,), generator=g, device=cuda)
+    return x, dt, A, B, C, D
+
+
+# (b, l, nh, hd, ds, chunk)
+SSD_CASES = {
+    "mamba2_two_chunks": (1, 512, 8, 64, 128, 256),
+    "one_chunk": (2, 64, 4, 64, 128, 64),
+    "ragged_tiles": (1, 192, 3, 32, 16, 96),
+    "reduced_mamba2": (2, 96, 8, 32, 16, 32),
+    "narrow_many_chunks": (2, 64, 4, 16, 16, 16),
+    "odd_dims": (1, 80, 3, 24, 40, 40),   # hd, ds off the 16 x 16 / 8 x 32 tilings
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+def test_ssd_matches_plain(cuda, name, dtype):
+    """y at f32 2e-5 / bf16 2e-2 and the f32 state at 1e-3, as
+    tests/test_kernels.py holds the TPU kernel."""
+    b, l, nh, hd, ds, chunk = SSD_CASES[name]
+    args = _xbc_views(cuda, b, l, nh, hd, ds, dtype)
+    assert not args[0].is_contiguous()
+    before = tssd.launches.value
+    y, st = tssd.ssd_op(*args, chunk=chunk)
+    assert tssd.launches.value == before + 1
+    y_ref, st_ref = tssd.ssd_ref(*args, chunk=chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_rejects_what_it_cannot_take(cuda):
+    x, dt, A, B, C, D = _xbc_views(cuda, 1, 96, 2, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        tssd.ssd_scan(x, dt, A, B, C, D, chunk=64)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tssd.ssd_scan(x.half(), dt, A, B.half(), C.half(), D, chunk=32)
+    with pytest.raises(TypeError, match="dt must be float32"):
+        tssd.ssd_scan(x, dt.bfloat16(), A, B, C, D, chunk=32)
+    with pytest.raises(TypeError, match="share"):
+        tssd.ssd_scan(x, dt, A, B.bfloat16(), C, D, chunk=32)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 32, 1, 128), device=cuda)
+        tssd.ssd_scan(big, dt[:, :32, :1], A[:1], B[:, :32], C[:, :32], D[:1], chunk=32)
+    with pytest.raises(ValueError, match="unit-stride"):
+        tssd.ssd_scan(x, dt, A, B[..., ::2], C[..., ::2], D, chunk=32)
+
+
+def test_worker_on_cuda_serves_mamba2_through_ssd(cuda, tmp_path):
+    from repro_torch.convert import params_to_flat
+    from repro_torch.serving import Worker
+    from repro_torch.serving.trace import build_delta_specs, request_tokens
+    cfg = reduced(get_config("mamba2-780m"))
+    model = build_model(cfg)
+    worker = Worker(str(tmp_path / "worker"), device=cuda)
+    base = model.init(0, device=worker.device)
+    worker.register_runtime(cfg.name, model, base)
+    specs = build_delta_specs(str(tmp_path), cfg, params_to_flat(base))
+    for spec in specs:
+        worker.register_function(spec)
+    tpatch.launches.reset()
+    tflash.launches.reset()
+    tssd.launches.reset()
+    forwards = 0
+    for spec in specs:
+        toks = request_tokens(spec, np.random.default_rng(0), cfg.vocab_size, seq=96)
+        outs = [worker.invoke(InvocationRequest(
+            function=spec.name, tokens=toks,
+            options=ColdStartOptions(strategy=s, force_cold=True))).output
+            for s in ("regular", "snapfaas")]
+        forwards += 2
+        assert np.isfinite(outs[0]).all()
+        np.testing.assert_allclose(outs[1], outs[0], rtol=1e-5, atol=1e-6)
+    assert tssd.launches.value == cfg.num_layers * forwards
+    assert tflash.launches.value == 0
+    assert tpatch.launches.value > 0

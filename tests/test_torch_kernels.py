@@ -15,11 +15,16 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.kernels.snapshot_patch import patch_apply as pallas_patch  # noqa: E402
+from repro.kernels.ssd import ssd_scan as pallas_ssd  # noqa: E402
 from repro.models.attention import naive_attention as jax_naive  # noqa: E402
+from repro.models.ssm import causal_conv as jax_causal_conv  # noqa: E402
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch import _build  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import snapshot_patch as tpatch  # noqa: E402
+from repro_torch.kernels import ssd as tssd  # noqa: E402
+from repro_torch.models.ssm import causal_conv  # noqa: E402
 
 
 # ------------------------------------------------------------ snapshot_patch
@@ -170,6 +175,97 @@ def test_flash_wrapper_routes():
     assert tflash.launches.value == before
     with pytest.raises(ValueError, match="CUDA"):
         tflash.flash_attention(q, q, q, scale=0.25)
+
+
+# ----------------------------------------------------------------------- ssd
+
+# (b, l, nh, hd, ds, chunk): tests/test_kernels.py's TestSSD shapes
+SSD_CASES = {
+    "small": (2, 64, 4, 16, 16, 16),
+    "wider": (1, 128, 2, 32, 64, 32),
+    "mamba2_tile": (2, 64, 4, 64, 128, 64),
+    "single_chunk": (1, 64, 1, 16, 16, 64),
+}
+
+
+def _ssd_inputs(case, dtype, seed=0):
+    """tests/test_kernels.py's inputs: dt, like x, B and C, in ``dtype``."""
+    b, l, nh, hd, ds = case[:5]
+    rng = np.random.default_rng(seed)
+    np_dt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    x = rng.standard_normal((b, l, nh, hd)).astype(np.float32).astype(np_dt)
+    dt = rng.uniform(0.01, 0.5, (b, l, nh)).astype(np_dt)
+    A = -rng.uniform(0.5, 2.0, (nh,)).astype(np.float32)
+    B = rng.standard_normal((b, l, ds)).astype(np.float32).astype(np_dt)
+    C = rng.standard_normal((b, l, ds)).astype(np.float32).astype(np_dt)
+    D = rng.standard_normal((nh,)).astype(np.float32)
+    return x, dt, A, B, C, D
+
+
+def _ssd_torch(arrs, dtype):
+    x, dt, A, B, C, D = arrs
+    return (_to_torch(x, dtype), _to_torch(dt, dtype), torch.from_numpy(A),
+            _to_torch(B, dtype), _to_torch(C, dtype), torch.from_numpy(D))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(SSD_CASES))
+def test_ssd_plain_matches_pallas_and_ssd_chunked(name, dtype):
+    """y at tests/test_kernels.py's TOL (f32 2e-5, bf16 2e-2: y is rounded
+    to bf16 per chunk), the f32 state at 1e-3 as there."""
+    case = SSD_CASES[name]
+    arrs = _ssd_inputs(case, dtype)
+    y, st = tssd.ssd_ref(*_ssd_torch(arrs, dtype), chunk=case[5])
+    assert y.dtype == _TORCH[dtype] and st.dtype == torch.float32
+    tol = dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    for want_y, want_st in (pallas_ssd(*jarrs, chunk=case[5], interpret=True),
+                            jax_ssd_chunked(*jarrs, chunk=case[5])):
+        np.testing.assert_allclose(y.float().numpy(), np.asarray(want_y, np.float32), **tol)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_st), rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_op_routes():
+    arrs = _ssd_torch(_ssd_inputs(SSD_CASES["small"], "float32"), "float32")
+    before = tssd.launches.value
+    y, st = tssd.ssd_op(*arrs, chunk=16)
+    assert tssd.launches.value == before  # the plain version is no launch
+    want_y, want_st = tssd.ssd_ref(*arrs, chunk=16)
+    assert torch.equal(y, want_y) and torch.equal(st, want_st)
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_scan(*arrs, chunk=16)  # the kernel wrapper takes CUDA only
+    with pytest.raises(ValueError, match="devices"):
+        tssd.ssd_op(*arrs[:5], arrs[5].to("meta"), chunk=16)
+
+
+def test_ssd_length_rule_matches_jax():
+    """``chunk = min(chunk, l)``, and a length that is not a multiple of the
+    chunk is refused by both packages (a 300-token request at chunk 256)."""
+    arrs = _ssd_inputs((1, 300, 2, 16, 16), "float32")
+    with pytest.raises(AssertionError):
+        jax_ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk=256)
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        tssd.ssd_op(*_ssd_torch(arrs, "float32"), chunk=256)
+    short = _ssd_inputs((1, 48, 2, 16, 16), "float32")  # l < chunk: one chunk of 48
+    y, _ = tssd.ssd_op(*_ssd_torch(short, "float32"), chunk=256)
+    want, _ = jax_ssd_chunked(*(jnp.asarray(a) for a in short), chunk=256)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_matches_jax(dtype):
+    """The same f32 tap loop, cast once: f32 1e-6; bf16 one ulp (2^-8)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 40, 24)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+    w = (rng.standard_normal((4, 24)) * 0.1).astype(np.float32)
+    b = rng.standard_normal((24,)).astype(np.float32)
+    got = causal_conv(_to_torch(x, dtype), torch.from_numpy(w), torch.from_numpy(b))
+    want = jax_causal_conv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    assert got.dtype == _TORCH[dtype]
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else dict(rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
 
 
 # --------------------------------------------------------------------- build

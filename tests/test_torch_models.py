@@ -1,6 +1,7 @@
-"""The port's dense model against the JAX package's: the parameter template
-(paths, shapes, dtypes), logits from JAX-carried weights, the unported
-families, and the bfloat16 bit-pattern conversion."""
+"""The port's dense and SSM models against the JAX package's: the parameter
+template (paths, shapes, dtypes), logits from JAX-carried weights, the
+mamba mixer, the unported families, and the bfloat16 bit-pattern
+conversion."""
 
 import dataclasses
 
@@ -50,6 +51,7 @@ def _jax_template_set(name, reduce):
 @pytest.mark.parametrize("name,reduce", [
     ("faas-bench", False), ("stablelm-3b", False), ("gemma-2b", False),
     ("mistral-nemo-12b", False), ("gemma2-27b", True), ("stablelm-3b", True),
+    ("mamba2-780m", False), ("mamba2-780m", True),
 ])
 def test_param_shapes_match_jax(name, reduce):
     cfg = get_config(name)
@@ -60,12 +62,30 @@ def test_param_shapes_match_jax(name, reduce):
 
 
 @pytest.mark.parametrize("name,roadmap", [
-    ("olmoe-1b-7b", "MoE"), ("mamba2-780m", "SSM"), ("whisper-small", "enc-dec"),
-    ("jamba-v0.1-52b", "SSM"),
+    ("olmoe-1b-7b", "MoE"), ("whisper-small", "enc-dec"), ("jamba-v0.1-52b", "MoE"),
 ])
 def test_unported_families_raise(name, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
         build_model(reduced(get_config(name))).param_shapes()
+
+
+def test_mamba2_builds_and_its_decode_branch_raises():
+    """The SSM family builds (the mixer's full-sequence branch is ported);
+    its decode branch waits for the prefill-and-decode slice."""
+    from repro_torch.models.ssm import conv_step, mamba_mixer, ssd_decode_step
+    cfg = reduced(get_config("mamba2-780m"))
+    params = build_model(cfg).init(0, device="cpu")
+    pos0 = params["blocks"]["pos0"]
+    assert {"w_z", "w_xBC", "w_dt", "A_log", "D", "conv_w", "w_out"} <= set(pos0)
+    np.testing.assert_allclose(pos0["A_log"][0].numpy(),
+                               np.log(np.arange(1, cfg.ssm_heads + 1, dtype=np.float32)))
+    layer = {k: v[0] for k, v in pos0.items() if not isinstance(v, dict)}
+    h = torch.zeros((1, 1, cfg.d_model))
+    for fn in (ssd_decode_step, conv_step):
+        with pytest.raises(NotImplementedError, match="item 5"):
+            fn()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        mamba_mixer(layer, h, cfg, decode=True)
 
 
 def _carry(cfg_name, reduce, seq, seed=0, dtype=None):
@@ -95,12 +115,28 @@ def _carry(cfg_name, reduce, seq, seed=0, dtype=None):
     ("gemma-2b", True, 24),         # MQA, GeGLU, scaled tied embeddings
     ("gemma2-27b", True, 40),       # local/global windows, both softcaps
     ("mistral-nemo-12b", True, 24),  # GQA
+    ("mamba2-780m", True, 96),      # SSD: 3 chunks of 32, the state carried
 ])
 def test_logits_from_jax_weights_match(name, reduce, seq):
     """f32 on the CPU; only the summation order differs → rtol/atol 1e-4."""
     got, want, _, _ = _carry(name, reduce, seq)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("seq", [32, 96])
+def test_mamba_mixer_matches_jax(seq):
+    """One mixer on JAX's layer-0 weights: f32, summation order only → 1e-4."""
+    from repro.models.ssm import mamba_mixer as jax_mixer
+    from repro_torch.models.ssm import mamba_mixer
+    jcfg = jax_reduced(jax_config("mamba2-780m"))
+    jp = jax.tree.map(lambda a: np.asarray(a)[0], jax_build(jcfg).init(5)["blocks"]["pos0"])
+    h = np.random.default_rng(seq).standard_normal((2, seq, jcfg.d_model)).astype(np.float32)
+    want, _ = jax_mixer(jp, jax.numpy.asarray(h), jcfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items() if not isinstance(v, dict)}
+    with torch.no_grad():
+        got = mamba_mixer(tp, torch.from_numpy(h), reduced(get_config("mamba2-780m")))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 def test_bf16_model_gives_f32_logits_close_to_jax():

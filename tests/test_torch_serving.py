@@ -150,6 +150,51 @@ def test_port_worker_matches_jax_worker(jax_and_port, strategy):
         np.testing.assert_allclose(got.output, want.output, rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def jax_and_port_mamba2(tmp_path_factory):
+    """Reduced mamba2 in both packages' workers: JAX's weights carried
+    across, the same delta uploads (adapter, head, fine-tune) registered in
+    each through ``FunctionSpec(delta=...)``."""
+    from repro.serving.worker import FunctionSpec as JSpec
+    from repro.serving.worker import Worker as JWorker
+    from repro_torch.serving import Worker
+    from repro_torch.serving.trace import build_delta_specs
+    jcfg = jax_reduced(jax_config("mamba2-780m"))
+    jm = jax_build(jcfg)
+    jparams = jm.init(0)
+    flat = flatten_pytree(jax.tree.map(np.asarray, jparams))
+    cfg = reduced(get_config("mamba2-780m"))
+    model = build_model(cfg)
+    specs = build_delta_specs(str(tmp_path_factory.mktemp("src")), cfg, flat)
+    jworker = JWorker(str(tmp_path_factory.mktemp("jax")))
+    jworker.register_runtime(jcfg.name, jm, jparams)
+    tworker = Worker(str(tmp_path_factory.mktemp("port")), device="cpu")
+    tworker.register_runtime(cfg.name, model,
+                             params_from_flat(flat, "cpu", template=model.param_shapes()))
+    for s in specs:
+        jworker.register_function(JSpec(name=s.name, family=jcfg.name, delta=s.delta,
+                                        touched_rows=s.touched_rows,
+                                        source_path=s.source_path))
+        tworker.register_function(s)
+    return jworker, tworker, specs, cfg
+
+
+@pytest.mark.parametrize("strategy", ["regular", "snapfaas"])
+def test_port_worker_matches_jax_worker_on_mamba2(jax_and_port_mamba2, strategy):
+    """64-token requests (2 chunks of 32: the state carry runs); f32, the
+    SSD scan and projections summed in other orders → 1e-4."""
+    from repro_torch.serving.trace import request_tokens
+    jworker, tworker, specs, cfg = jax_and_port_mamba2
+    assert [s.name for s in specs] == ["fn0-adapter", "fn1-head", "fn2-finetune"]
+    for s in specs:
+        toks = request_tokens(s, np.random.default_rng(13), cfg.vocab_size, seq=64)
+        want = _invoke(jworker, s.name, toks, strategy=strategy, force_cold=True)
+        got = _invoke(tworker, s.name, toks, strategy=strategy, force_cold=True)
+        assert got.output.shape == want.output.shape == (1, 8)
+        np.testing.assert_allclose(got.output, want.output, rtol=1e-4, atol=1e-4,
+                                   err_msg=s.name)
+
+
 def test_snapshot_from_jax_registry_restores_in_port(tmp_path):
     """A root written by the JAX registry: the port's worker reopens its
     chunk store, finds every chunk of the same base and function already

@@ -8,13 +8,15 @@ Phases, each of which passes or makes the script exit non-zero:
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit, the TF32 flags (set off: float32 matmuls in full float32);
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``;
-3. the three kernels (snapshot_patch, flash_attention, ssd_scan) against
-   their plain PyTorch versions on the card, at their paths' shapes (each
-   path's shape listed first): error; device times of kernel, plain version
-   and, for attention, PyTorch's ``scaled_dot_product_attention`` as a
-   yardstick (never used by the port), each the median of 30 replays of a
-   CUDA graph of the calls between CUDA events; the bound; and the kernel's
-   time per eager call, host dispatch included;
+3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
+   decode_attention_int8) against their plain PyTorch versions on the card,
+   at their paths' shapes (each path's shape listed first): error; device
+   times of kernel, plain version and, for attention, PyTorch's
+   ``scaled_dot_product_attention`` as a yardstick (never used by the
+   port) and, for int8 decode, the model-dtype ``decode_attention`` on the
+   unquantised cache, each the median of 30 replays of a CUDA graph of the
+   calls between CUDA events; the bound; and the kernel's time per eager
+   call, host dispatch included;
 4. the dense main path: faas-bench at full width served through
    ``Worker.invoke`` on the card, forced-cold under every strategy plus a
    warm hit, checked against a CPU worker; the kernel launch counters are
@@ -31,12 +33,25 @@ Phases, each of which passes or makes the script exit non-zero:
    CPU worker; then the same model in float32, every logits row of a
    1024-token forward against the CPU, where a forward without the
    carried state must fail;
-7. the ``repro_torch.launch.serve`` entry point: the cluster on threads;
-8. the ``{"kernels": [...]}`` summary (each kernel with its own path's
-   launches), the ``nvidia-smi`` line, and last the
-   ``{"ok": true, "device": ...}`` line.
+7. prefill and decode through ``make_prefill_step`` / ``make_serve_step``:
+   stablelm-3b (2 layers, bf16) prefills 1024 tokens into a 2048 cache
+   (one flash launch per layer) and decodes 32 teacher-forced tokens, each
+   step's logits against one forward over the 1056 tokens; beside every
+   decode step's attention the int8 kernel runs on that step's quantised
+   cache (its own path: layers x steps launches), held to its plain
+   version and within 2% of the model-dtype result; the same model in
+   float32 holds every step to the forward at 1e-4, where a decode rotated
+   one position off must fail; then mamba2-780m
+   (8 layers, float32) prefills 768 tokens (one ``ssd_scan`` per layer,
+   whose final state seeds the cache) and decodes 256, every step against
+   a 1024-token forward, where a decode from a zeroed SSM state must fail;
+8. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
-About 3 minutes on one H100, the kernels' build included.
+Then the ``{"kernels": [...]}`` summary (each kernel with its own path's
+launches), the ``nvidia-smi`` line, and last the
+``{"ok": true, "device": ...}`` line.
+
+About 4 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -63,6 +78,19 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 L2_ROTATE_BYTES = 150 * 10**6   # 3x the H100's 50 MB L2
+
+
+def int8_tol(dname: str, ref) -> dict:
+    """The int8 decode kernel's tolerance against its plain version: TOL,
+    with the bf16 absolute term cut to 1e-2 of max|ref|.  Attention over a
+    long random cache averages its values down (|out| about 0.01 at S 32768),
+    so a flat 2e-2 would exceed the output itself; 1e-2 of the largest
+    output is about one bf16 ulp of it, and the 2e-2 relative term allows
+    two to three ulps of each element."""
+    tol = dict(TOL[dname])
+    if dname == "bfloat16":
+        tol["atol"] = min(tol["atol"], 1e-2 * float(ref.float().abs().max()))
+    return tol
 
 
 def fail(msg: str) -> None:
@@ -364,6 +392,81 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype):
     emit(case)
 
 
+def decode_case(ctx, torch, gen, label, b, nh, nkv, S, hd, pos, dtype, *, quick=False):
+    """The int8 kernel against its plain version, on a cache quantised from
+    random values in the model's dtype; beside it the model-dtype
+    ``decode_attention`` on the unquantised cache, the traffic the int8
+    cache is meant to halve.  ``quick``: fewer replays (caches of GBs)."""
+    from repro_torch.kernels.decode_attention import (decode_attention_int8,
+                                                      decode_attention_int8_ref,
+                                                      quantize_kv)
+    from repro_torch.kernels.decode_attention.kernel import TILE, num_splits
+    from repro_torch.models.attention import decode_attention
+
+    dev = torch.device("cuda")
+    dname = str(dtype).replace("torch.", "")
+    scale = hd ** -0.5
+    live = min(pos + 1, S)
+    # the kernel's split layout: each split walks this many 128-key tiles,
+    # rescaling its running (m, l, acc) from one tile to the next
+    nsplit = num_splits(dev, b, S, nkv)
+    tiles_per_split = -(-(-(-live // TILE)) // nsplit)
+    e = torch.empty((), dtype=dtype).element_size()
+    # each input read once up to pos, the output written once
+    nbytes = (2 * b * live * nkv * hd + 2 * 4 * b * live * nkv + 2 * b * nh * hd * e + 4)
+    model_bytes = 2 * b * live * nkv * hd * e + 2 * b * nh * hd * e
+
+    def make():
+        q = torch.randn((b, nh, hd), generator=gen, device=dev).to(dtype)
+        kf, vf = (torch.randn((b, S, nkv, hd), generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        return q, kf, vf, (*quantize_kv(kf), *quantize_kv(vf))
+
+    # a decode step reads a cache that lies in HBM, not in L2: cycle through
+    # enough input sets that a replay cannot serve them from cache
+    nsets = 1 if quick else min(32, -(-L2_ROTATE_BYTES // nbytes))
+    sets = [make() for _ in range(nsets)]
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    q, kf, vf, (k, ks, v, vs) = sets[0]
+    out = decode_attention_int8(q, k, ks, v, vs, pos_t, scale=scale)
+    ref = decode_attention_int8_ref(q, k, ks, v, vs, pos, scale=scale)
+    full = decode_attention(q[:, None], kf, vf, pos, scale=scale)[:, 0]
+    torch.cuda.synchronize()
+    tol = int8_tol(dname, ref)
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).all()):
+        fail(f"decode_attention_int8 {label}: max abs err {err} outside {tol}")
+    rel = float((out.float() - full.float()).abs().max() / full.float().abs().max())
+    reps = dict(reps=10, per_graph=2) if quick else {}
+    kernel_ms = device_ms(torch, [lambda s=s: decode_attention_int8(
+        s[0], *s[3], pos_t, scale=scale) for s in sets], **reps)
+    plain_ms = device_ms(torch, [lambda s=s: decode_attention_int8_ref(
+        s[0], *s[3], pos_t, scale=scale) for s in sets], **reps)
+    model_ms = device_ms(torch, [lambda s=s: decode_attention(
+        s[0][:, None], s[1], s[2], pos_t, scale=scale) for s in sets], **reps)
+    ops = 4.0 * b * nh * live * hd   # dequantised values: float32 on the CUDA cores
+    t_ops = ops / PEAK_OPS["float32"] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    case = {"kernel": "decode_attention_int8", "case": label, "dtype": dname, "b": b,
+            "nh": nh, "nkv": nkv, "S": S, "hd": hd, "pos": pos, "splits": nsplit,
+            "tiles_per_split": tiles_per_split, "max_abs_err": err, "tolerance": tol,
+            "ref_max_abs": float(ref.float().abs().max()),
+            "err_vs_model_dtype_rel": rel, "kernel_ms": kernel_ms,
+            "eager_ms": eager_ms(torch, lambda: decode_attention_int8(
+                q, k, ks, v, vs, pos_t, scale=scale)),
+            "plain_ms": plain_ms, "model_dtype_decode_attention_ms": model_ms,
+            "model_dtype_bound_ms": model_bytes / HBM_BYTES_PER_S * 1e3,
+            "input_sets": nsets, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+    ctx.cases.append(case)
+    emit(case)
+    del sets
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(ctx, torch, rt):
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16, i32, u8 = torch.float32, torch.bfloat16, torch.int32, torch.uint8
@@ -406,15 +509,44 @@ def phase_kernels(ctx, torch, rt):
     for dt in (f32, bf16):  # tests/test_kernels.py's mamba2-like tile
         ssd_case(ctx, torch, gen, "b=2 l=64 nh=4 chunk=64", 2, 64, 4, 64, 128, 64, dt)
 
+    # the decode path's case first: stablelm-3b, b 1, cache 2048, the
+    # decode phase's middle step (prefill 1024 + 32 steps)
+    sl = dict(nh=32, nkv=32, hd=80)
+    decode_case(ctx, torch, gen, "stablelm-3b S=2048 pos=1039", 1, S=2048, pos=1039,
+                dtype=bf16, **sl)
+    decode_case(ctx, torch, gen, "stablelm-3b S=2048 pos=1039", 1, S=2048, pos=1039,
+                dtype=f32, **sl)
+    nemo = dict(nh=32, nkv=8, hd=128)
+    for b in (1, 8):  # the repo's decode_32k length
+        decode_case(ctx, torch, gen, f"stablelm-3b S=32768 b={b}", b, S=32768,
+                    pos=32767, dtype=bf16, quick=b > 1, **sl)
+        decode_case(ctx, torch, gen, f"mistral-nemo GQA 32:8 S=32768 b={b}", b,
+                    S=32768, pos=32767, dtype=bf16, quick=b > 1, **nemo)
+    # float32 q where each split spans several tiles, so that 2e-5 holds the
+    # cross-tile rescale; the last one ends mid-tile with splits past pos
+    decode_case(ctx, torch, gen, "stablelm-3b S=32768 b=1", 1, S=32768, pos=32767,
+                dtype=f32, **sl)
+    decode_case(ctx, torch, gen, "mistral-nemo GQA 32:8 S=32768 b=1", 1, S=32768,
+                pos=32767, dtype=f32, **nemo)
+    decode_case(ctx, torch, gen, "mistral-nemo GQA 32:8 S=32768 b=8 pos=20000", 8,
+                S=32768, pos=20000, dtype=f32, quick=True, **nemo)
+    for pos in (76, 255):  # tests/test_kernels.py's MQA shape, pos_frac 0.3 and 1
+        decode_case(ctx, torch, gen, f"MQA 8:1 S=256 pos={pos}", 1, 8, 1, 256, 64, pos, f32)
+    decode_case(ctx, torch, gen, "ragged S=1000 GQA 2:1", 2, 4, 2, 1000, 32, 999, f32)
+    if not any(c["kernel"] == "decode_attention_int8" and c["dtype"] == "float32"
+               and c["tiles_per_split"] > 1 for c in ctx.cases):
+        fail("no float32 int8 decode case has a split over several tiles")
+
 
 # --------------------------------------------------------------- phases 4-6
 
 def _counters():
-    from repro_torch.kernels import flash_attention, snapshot_patch, ssd
+    from repro_torch.kernels import decode_attention, flash_attention, snapshot_patch, ssd
 
     return {"snapshot_patch": snapshot_patch.launches,
             "flash_attention": flash_attention.launches,
-            "ssd_scan": ssd.launches}
+            "ssd_scan": ssd.launches,
+            "decode_attention_int8": decode_attention.launches}
 
 
 def _reset():
@@ -657,6 +789,227 @@ def phase_mamba2(ctx, torch, rt):
              "check: it cannot see the carry")
 
 
+def _decode_timed(torch, serve, params, cache, tokens, start, steps):
+    """``steps`` teacher-forced decode steps from ``start``; returns the
+    per-step logits (on the host) and the milliseconds per token."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for pos in range(start, start + steps):
+        logits, cache = serve(params, cache, tokens[:, pos], pos)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.stack(outs, 1)[0].float().cpu().numpy(), ms
+
+
+def _prefill_timed(torch, prefill, params, tokens):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return logits[0].float().cpu().numpy(), cache, time.perf_counter() - t0
+
+
+def phase_decode(ctx, torch, rt):
+    """Prefill and decode through the step builders: stablelm-3b with the
+    int8 kernel run on every decode step's real cache, then mamba2-780m,
+    whose prefill hands the SSD scan's final state to the decode."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Batch, build_model
+
+    # -- stablelm-3b: prefill 1024 into a 2048 cache, decode 32 tokens
+    full = get_config("stablelm-3b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    prompt, steps, cache_len = 1024, 32, 2048
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (1, prompt + steps), dtype=np.int32)).cuda()
+    prefill, serve = make_prefill_step(model, cache_len), make_serve_step(model)
+    with torch.no_grad():
+        forward = model.logits(params, Batch(tokens=tok))[0].float().cpu().numpy()
+        checks = []
+        _reset()                                    # the int8 kernel's path starts here
+        with _int8_beside_decode(checks):
+            first, cache, prefill_first_s = _prefill_timed(torch, prefill, params,
+                                                           tok[:, :prompt])
+            rows, ms_checked = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+        counts = _read()                            # and ends here
+        # the same again without the int8 check beside it, for the times
+        _, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        shifted = _clone_cache(cache)
+        _, decode_ms = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+        with _rope_off_by_one():
+            bad_rows, _ = _decode_timed(torch, serve, params, shifted, tok, prompt, 8)
+    ctx.launches["decode_attention_int8"] = counts["decode_attention_int8"]
+    # bf16 weights and activations: the decode path rounds q, k, v and the
+    # softmax weights (cast to bf16 before P.V, as JAX does) where the
+    # forward's flash kernel keeps them in f32, and its GEMMs have other
+    # shapes; logits of magnitude up to about 5 then differ by a few bf16
+    # ulps.  At that tolerance a fault in the decode's positions need not
+    # show (the off-by-one control's error is printed, not held): the
+    # float32 run below is the check that sees it.
+    tol = dict(rtol=2e-2, atol=1e-1)
+    want = forward[prompt - 1:prompt + steps]
+    got = np.concatenate([first, rows], 0)
+    err = float(np.abs(got - want).max())
+    int8_err = max(c["max_abs_err"] for c in checks)
+    int8_rel = max(c["rel"] for c in checks)
+    emit({"phase": "decode", "model": "stablelm-3b",
+          "cut": f"num_layers {full.num_layers} -> {cfg.num_layers}", "dtype": cfg.dtype,
+          "prompt": prompt, "decode_steps": steps, "cache_len": cache_len,
+          "launches": counts, "logits_vs_forward_max_abs_err": err,
+          "tolerance": tol, "logits_max_abs": float(np.abs(want).max()),
+          "rope_off_by_one_max_abs_err": float(np.abs(bad_rows - want[1:9]).max()),
+          "int8_vs_plain_max_abs_err": int8_err,
+          "int8_vs_model_dtype_rel_max": int8_rel,
+          "int8_vs_model_dtype_rel_per_step": [round(c["rel"], 6) for c in checks],
+          "prefill_s": prefill_s, "prefill_first_s": prefill_first_s,
+          "decode_ms_per_token": decode_ms, "decode_ms_per_token_with_int8_check": ms_checked})
+    if not np.isfinite(got).all() or not np.allclose(got, want, **tol):
+        fail(f"stablelm-3b decode: logits differ from the forward's rows by {err}")
+    if counts["flash_attention"] != cfg.num_layers:
+        fail(f"stablelm-3b prefill: flash launches {counts['flash_attention']} != layers")
+    if counts["decode_attention_int8"] != cfg.num_layers * steps:
+        fail(f"decode_attention_int8 launches {counts['decode_attention_int8']} != layers x "
+             f"steps {cfg.num_layers * steps}")
+    if int8_rel >= 0.02:
+        fail(f"int8 decode attention is {int8_rel:.4f} of max|ref| from the model-dtype "
+             "result on the stablelm-3b cache (bound 0.02)")
+    del params, cache, shifted, forward
+    torch.cuda.empty_cache()
+
+    # -- stablelm-3b, float32: the same model and tokens; every step's logits
+    # against the forward at 1e-4 (summation order only), where a decode that
+    # rotates the new token's q and k one position off must fail
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = m32.init(0, device="cuda")
+    prefill, serve = make_prefill_step(m32, cache_len), make_serve_step(m32)
+    with torch.no_grad():
+        forward = m32.logits(p32, Batch(tokens=tok))[0].cpu().numpy()
+        first, cache, _ = _prefill_timed(torch, prefill, p32, tok[:, :prompt])
+        shifted = _clone_cache(cache)
+        rows, _ = _decode_timed(torch, serve, p32, cache, tok, prompt, steps)
+        with _rope_off_by_one():
+            bad_rows, _ = _decode_timed(torch, serve, p32, shifted, tok, prompt, 8)
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    want = forward[prompt - 1:prompt + steps]
+    got = np.concatenate([first, rows], 0)
+    err = float(np.abs(got - want).max())
+    bad_err = float(np.abs(bad_rows - want[1:9]).max())
+    emit({"phase": "decode", "model": "stablelm-3b", "dtype": "float32",
+          "logits_vs_forward_max_abs_err": err, "tolerance": tol32,
+          "rope_off_by_one_steps": 8, "rope_off_by_one_max_abs_err": bad_err})
+    if not np.isfinite(got).all() or not np.allclose(got, want, **tol32):
+        fail(f"stablelm-3b float32 decode: logits differ from the forward's rows by {err}")
+    if np.allclose(bad_rows, want[1:9], **tol32):
+        fail("stablelm-3b float32: a decode rotated one position off passes the check: "
+             "it cannot see the decode's positions")
+    del p32, cache, shifted, forward
+    torch.cuda.empty_cache()
+
+    # -- mamba2-780m, float32: prefill 768 (3 chunks), decode 256
+    m_full = get_config("mamba2-780m")
+    mcfg = dataclasses.replace(m_full, num_layers=8, dtype="float32")
+    prompt, steps = 768, 256
+    model = build_model(mcfg)
+    params = model.init(0, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(17).integers(
+        0, mcfg.vocab_size, (1, prompt + steps), dtype=np.int32)).cuda()
+    prefill, serve = make_prefill_step(model, prompt + steps), make_serve_step(model)
+    with torch.no_grad():
+        forward = model.logits(params, Batch(tokens=tok))[0].cpu().numpy()
+        _reset()
+        first, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        scans = _read()["ssd_scan"]
+        zeroed = _clone_cache(cache)
+        for d in zeroed.values():
+            d["ssm"].zero_()
+        rows, decode_ms = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+        zero_steps = 32
+        zero_rows, _ = _decode_timed(torch, serve, params, zeroed, tok, prompt, zero_steps)
+    tol32 = dict(rtol=1e-4, atol=1e-4)   # float32; summation order only
+    want = forward[prompt - 1:prompt + steps]
+    got = np.concatenate([first, rows], 0)
+    err = float(np.abs(got - want).max())
+    zero_err = float(np.abs(zero_rows - want[1:1 + zero_steps]).max())
+    emit({"phase": "decode", "model": "mamba2-780m",
+          "cut": f"num_layers {m_full.num_layers} -> {mcfg.num_layers}", "dtype": mcfg.dtype,
+          "prompt": prompt, "decode_steps": steps, "ssd_scan_launches_in_prefill": scans,
+          "logits_vs_forward_max_abs_err": err, "tolerance": tol32,
+          "zeroed_state_steps": zero_steps, "zeroed_state_max_abs_err": zero_err,
+          "prefill_s": prefill_s, "decode_ms_per_token": decode_ms})
+    if scans != mcfg.num_layers:
+        fail(f"mamba2-780m prefill: ssd_scan launches {scans} != layers")
+    if not np.isfinite(got).all() or not np.allclose(got, want, **tol32):
+        fail(f"mamba2-780m decode: logits differ from the forward's rows by {err}")
+    if np.allclose(zero_rows, want[1:1 + zero_steps], **tol32):
+        fail("mamba2-780m: a decode from a zeroed SSM state passes the check: it cannot "
+             "see the state prefill carried")
+
+
+def _clone_cache(cache):
+    return {k: {leaf: t.clone() for leaf, t in d.items()} for k, d in cache.items()}
+
+
+@contextlib.contextmanager
+def _rope_off_by_one():
+    """RoPE at position - 1: inside decode steps, the new token's q and k
+    rotated one position off (written into the cache so), the fault a check
+    of the decode's positions must see."""
+    from repro_torch.models import transformer
+
+    rope = transformer.apply_rope
+    transformer.apply_rope = lambda x, positions, theta: rope(x, positions - 1, theta)
+    try:
+        yield
+    finally:
+        transformer.apply_rope = rope
+
+
+@contextlib.contextmanager
+def _int8_beside_decode(checks):
+    """Beside every call of the model's ``decode_attention`` (whose result
+    the model keeps), quantise that step's K and V cache and run the int8
+    op on the same q and pos: held to the plain int8 version and to the
+    model-dtype result."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention_int8_op,
+                                                      decode_attention_int8_ref,
+                                                      quantize_kv)
+    from repro_torch.models import transformer
+
+    attend = transformer.decode_attention
+
+    def beside(q, k_cache, v_cache, pos, *, scale, window=0, logit_softcap=0.0):
+        out = attend(q, k_cache, v_cache, pos, scale=scale, window=window,
+                     logit_softcap=logit_softcap)
+        if window or logit_softcap:
+            fail("the int8 kernel has no window or softcap")
+        k8, ks = quantize_kv(k_cache)
+        v8, vs = quantize_kv(v_cache)
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=q.device)
+        got = decode_attention_int8_op(q[:, 0], k8, ks, v8, vs, pos_t, scale=scale)
+        plain = decode_attention_int8_ref(q[:, 0], k8, ks, v8, vs, pos, scale=scale)
+        diff = (got.float() - plain.float()).abs()
+        tol = int8_tol(str(q.dtype).replace("torch.", ""), plain)
+        if not bool((diff <= tol["atol"] + tol["rtol"] * plain.float().abs()).all()):
+            fail(f"int8 decode at pos {pos}: {float(diff.max())} from its plain version")
+        ref = out[:, 0].float()
+        checks.append({"pos": pos, "max_abs_err": float(diff.max()),
+                       "rel": float((got.float() - ref).abs().max() / ref.abs().max())})
+        return out
+
+    transformer.decode_attention = beside
+    try:
+        yield
+    finally:
+        transformer.decode_attention = attend
+
+
 @contextlib.contextmanager
 def _ssd_without_carry():
     """The mixer's scan run chunk by chunk from a zero state (the carry
@@ -709,6 +1062,9 @@ KERNELS = {  # source, the TPU kernel it replaces, the path its launches are rea
                         "src/repro/kernels/flash_attention/kernel.py:101", "faas-bench"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd/kernel.py:80", "mamba2-780m"),
+    "decode_attention_int8": ("src/repro_torch/csrc/decode_attention_int8.cu",
+                              "src/repro/kernels/decode_attention/kernel.py:77",
+                              "stablelm-3b decode"),
 }
 
 
@@ -730,7 +1086,7 @@ def summary(ctx):
 
 PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels),
           ("faas", phase_faas), ("stablelm", phase_stablelm), ("mamba2", phase_mamba2),
-          ("serve", phase_serve))
+          ("decode", phase_decode), ("serve", phase_serve))
 
 
 def main() -> None:

@@ -2,9 +2,10 @@
 
 The JAX package ``repro`` is the reference; this package runs the same main
 path — content-addressed snapshot restore, on-device base ⊕ diff patching and
-the dense forward behind ``Worker.invoke`` — on an NVIDIA H100, with its two
-TPU kernels (``snapshot_patch``, ``flash_attention``) rewritten by hand in
-CUDA C++ for ``sm_90a`` (``csrc/``).  It imports ``torch`` and numpy only:
+the dense and SSM forward behind ``Worker.invoke`` — and prefill and decode
+on an NVIDIA H100, with the TPU kernels (``snapshot_patch``,
+``flash_attention``, ``ssd_scan``, ``decode_attention_int8``) rewritten by
+hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It imports ``torch`` and numpy only:
 modules it shares with ``repro`` are copies, held to their originals by a
 drift test.
 

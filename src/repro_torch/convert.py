@@ -78,7 +78,9 @@ def params_from_flat(flat: Dict[str, np.ndarray], device: DeviceLike = None, *,
 
     With ``template`` (``Model.param_shapes()``) every leaf takes the
     template's dtype and shape, which turns the ``uint16`` bit patterns of
-    :func:`params_to_flat` back into bfloat16: the two are inverse."""
+    :func:`params_to_flat` back into bfloat16: the two are inverse.  A JAX
+    decode cache crosses the same way, with
+    ``template=model.init_cache(batch, cache_len, device="meta")``."""
     root: Dict[str, Any] = {}
     for path, arr in flat.items():
         parts = path.split("/")

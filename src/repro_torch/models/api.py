@@ -1,12 +1,12 @@
 """Public model API of the port: ``Model`` with ``init``, ``param_shapes``,
-``forward`` and ``logits`` over a nested dict of tensors (the dense
-full-sequence path of ``repro.models.api``)."""
+``forward``, ``logits``, ``init_cache``, ``prefill`` and ``decode_step`` over
+nested dicts of tensors (the dense and SSM paths of ``repro.models.api``)."""
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -14,7 +14,14 @@ from . import blocks as blocks_mod
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
 from .layers import apply_norm, softcap
-from .transformer import apply_stack, init_params, param_shapes, unsupported
+from .transformer import (
+    _check_supported,
+    apply_stack,
+    init_params,
+    param_shapes,
+    torch_dtype,
+    unsupported,
+)
 
 PyTree = Any
 
@@ -65,20 +72,86 @@ class Model:
             logits = h.float() @ W.float()
         return softcap(logits, self.cfg.final_logit_softcap)
 
-    def forward(self, params, batch: Batch) -> torch.Tensor:
-        """Full-sequence final hidden states (b, s, D)."""
-        if self.cfg.is_encoder_decoder:
-            raise unsupported("encoder-decoder (whisper)", "enc-dec / VLM / gemma-2 slice")
+    def _check_family(self) -> None:
+        """Raise, naming the ROADMAP item, for a family not ported yet."""
+        for kind in self.plan.kinds:
+            _check_supported(self.cfg, kind)
+
+    def _check_batch(self, batch: Batch) -> None:
+        self._check_family()
         if batch.prefix_embeds is not None:
             raise unsupported("the VLM prefix", "enc-dec / VLM / gemma-2 slice")
+
+    def forward(self, params, batch: Batch) -> torch.Tensor:
+        """Full-sequence final hidden states (b, s, D)."""
+        self._check_batch(batch)
         h = self._embed(params, batch.tokens)
         positions = torch.arange(h.shape[1], device=h.device)
-        h = apply_stack(self.cfg, self.plan.kinds, params["blocks"], h,
-                        positions=positions)
+        h, _ = apply_stack(self.cfg, self.plan.kinds, params["blocks"], h,
+                           positions=positions)
         return apply_norm(h, params["final_norm"], self.cfg.norm)
 
     def logits(self, params, batch: Batch) -> torch.Tensor:
         return self._logits_head(params, self.forward(params, batch))
+
+    # -- caches ---------------------------------------------------------------
+
+    def init_cache(self, batch: int, cache_len: int, dtype=None, *,
+                   device: DeviceLike = None) -> PyTree:
+        """Zeroed cache for ``decode_step`` in JAX's layout: ``pos{i}/k`` and
+        ``/v`` shaped (n_repeat, b, cache_len, nkv, hd) in ``dtype`` (the
+        model's unless given), ``pos{i}/conv`` (n_repeat, b, width - 1, ch)
+        and ``/ssm`` (n_repeat, b, nh, hd, ds) float32.  With
+        ``device="meta"`` it is the template that carries a JAX cache across
+        (``convert.params_from_flat``)."""
+        cfg = self.cfg
+        self._check_family()
+        if dtype is None:
+            dtype = cfg.dtype
+        dt = torch_dtype(dtype) if isinstance(dtype, str) else dtype
+        dev = torch.device("meta") if device == "meta" else resolve_device(device)
+        n = self.plan.n_repeat
+        cache: Dict[str, Any] = {}
+        for i, kind in enumerate(self.plan.kinds):
+            if kind.mixer == "attn":
+                shape = (n, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+                cache[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+            else:
+                ch = cfg.d_inner + 2 * cfg.ssm_state
+                cache[f"pos{i}"] = {
+                    "conv": torch.zeros((n, batch, cfg.ssm_conv - 1, ch), dtype=dt, device=dev),
+                    "ssm": torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                        cfg.ssm_state), dtype=torch.float32, device=dev),
+                }
+        return cache
+
+    # -- prefill and decode ----------------------------------------------------
+
+    def prefill(self, params, batch: Batch, cache_len: int) -> Tuple[torch.Tensor, PyTree]:
+        """Run the full prompt; returns (last-token logits (b, 1, V), cache)."""
+        self._check_batch(batch)
+        h = self._embed(params, batch.tokens)
+        h, caches = apply_stack(self.cfg, self.plan.kinds, params["blocks"], h,
+                                positions=torch.arange(h.shape[1], device=h.device),
+                                make_cache=True, cache_len=cache_len)
+        h = apply_norm(h, params["final_norm"], self.cfg.norm)
+        return self._logits_head(params, h[:, -1:, :]), caches
+
+    def decode_step(self, params, cache: PyTree, tokens: torch.Tensor,
+                    pos) -> Tuple[torch.Tensor, PyTree]:
+        """One decode step: tokens (b,), ``pos`` the position they take (an
+        int or a one-element integer tensor), ``0 <= pos < cache_len``.
+        Returns (logits (b, V), cache); the cache is updated in place.  The
+        step reads ``pos`` on the host: a CUDA tensor costs a sync per step,
+        so a decode loop passes an int."""
+        self._check_family()
+        h = self._embed(params, tokens[:, None])
+        h, cache = apply_stack(self.cfg, self.plan.kinds, params["blocks"], h,
+                               positions=torch.arange(1, device=h.device), cache=cache,
+                               decode=True, pos=int(pos))
+        h = apply_norm(h, params["final_norm"], self.cfg.norm)
+        return self._logits_head(params, h)[:, 0, :], cache
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,11 +1,12 @@
-"""Attention oracles in the model's (b, s, heads, hd) layout.
+"""Attention in the model's (b, s, heads, hd) layout.
 
 ``blockwise_attention`` (query blocks, an online softmax over KV blocks,
 fully masked KV blocks skipped) and ``naive_attention`` (O(s²) memory)
 follow ``repro.models.attention``.  They are references for the tests and
 for ``chip_smoke.py``; the forward's attention goes through
 ``repro_torch.kernels.flash_attention.flash_attention_op`` (the CUDA kernel
-on the card).
+on the card).  ``decode_attention`` is the decode step's attention of one
+token over the KV cache, plain PyTorch as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -113,3 +114,35 @@ def naive_attention(q, k, v, *, scale, causal=True, window=0, prefix_len=0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqgrk,bkgd->bqgrd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, qs, nh, hd).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,        # (b, 1, nh, hd)
+    k_cache: torch.Tensor,  # (b, S, nkv, hd)
+    v_cache: torch.Tensor,  # (b, S, nkv, hd)
+    pos,                    # int or 0-d / 1-element integer tensor: the fill level
+    *,
+    scale: float,
+    window: int = 0,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Single-token attention over a KV cache (keys ``k_pos <= pos``, and
+    ``pos - k_pos < window`` for a local layer).  JAX's casts: scores and
+    softmax in float32, the weights cast to the cache's dtype before the
+    P·V product, which accumulates in float32."""
+    b, _, nh, hd = q.shape
+    _, S, nkv, _ = k_cache.shape
+    qr = q.reshape(b, nkv, nh // nkv, hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", qr.float(), k_cache.float()) * scale
+    if logit_softcap > 0.0:
+        s = _softcap(s, logit_softcap)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.reshape(())
+    k_pos = torch.arange(S, device=q.device)
+    allowed = k_pos <= pos
+    if window > 0:
+        allowed = allowed & (pos - k_pos < window)
+    s = torch.where(allowed[None, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrk,bkgd->bgrd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(b, 1, nh, hd).to(q.dtype)

@@ -2,12 +2,13 @@
 dict of parameters.
 
 Port of the dense and SSM paths of ``repro.models.transformer``:
-``init_layer`` (attention + MLP, or the mamba mixer), ``init_params``, the
-full-sequence ``apply_layer`` and
-``apply_stack`` as a loop over the leading ``n_repeat`` axis of the
-stacked macro-block parameters.  Parameter paths, shapes and dtypes are the
-JAX package's exactly (``blocks/pos{i}/...`` stacked over ``n_repeat``), so
-both packages' snapshots share chunk digests.
+``init_layer`` (attention + MLP, or the mamba mixer), ``init_params``,
+``apply_layer`` (full sequence, prefill with ``make_cache``, one decode
+token with ``decode``) and ``apply_stack`` as a loop over the leading
+``n_repeat`` axis of the stacked macro-block parameters and caches.
+Parameter paths, shapes and dtypes are the JAX package's exactly
+(``blocks/pos{i}/...`` stacked over ``n_repeat``), so both packages'
+snapshots share chunk digests.
 
 The models are functional on purpose: the serving worker hands a different
 restored tree (zero-copy pool shares plus patched leaves) to every
@@ -17,13 +18,15 @@ invocation.  The other families are later slices of the port and raise
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.nn.functional import pad as _pad
 
 from . import blocks as blocks_mod
 from ..kernels.flash_attention import flash_attention_op
+from .attention import decode_attention
 from .config import LayerKind, ModelConfig
 from .layers import apply_norm, apply_rope, mlp
 from .ssm import mamba_mixer
@@ -160,30 +163,78 @@ def _scale(cfg: ModelConfig) -> float:
             else 1.0 / float(np.sqrt(cfg.head_dim)))
 
 
+def _attend_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor, cache: PyTree,
+                   pos: int, window: int) -> torch.Tensor:
+    """One token's attention: q, k, v rotated at ``pos``, k and v written
+    into the cache slice at ``pos`` in place, then attention over it."""
+    S = cache["k"].shape[1]
+    if not 0 <= pos < S:
+        # JAX's dynamic_update_slice would clamp the write to the last slot
+        raise ValueError(f"decode position {pos} outside the cache of {S} positions")
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
+    k = torch.einsum("bld,dgk->blgk", x, p["wk"])
+    v = torch.einsum("bld,dgk->blgk", x, p["wv"])
+    if cfg.use_rope:
+        posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    return decode_attention(q, cache["k"], cache["v"], pos, scale=_scale(cfg),
+                            window=window, logit_softcap=cfg.attn_logit_softcap)
+
+
 def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *,
-                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """One full-sequence layer (no cache)."""
+                positions: torch.Tensor, causal: bool = True,
+                cache: Optional[PyTree] = None, decode: bool = False,
+                pos: Optional[int] = None, make_cache: bool = False,
+                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[PyTree]]:
+    """One layer; returns (h, new cache or None).
+
+    ``decode`` runs one token at ``pos`` against ``cache`` (this layer's
+    slice), which it updates in place and returns.  ``make_cache`` returns
+    the layer's new cache from a full sequence: the rotated k and v padded
+    to ``cache_len``, or the mamba mixer's conv and SSM state."""
     _check_supported(cfg, kind)
+    new_cache = None
     # the residual stream h may be f32 (carry precision); compute in cfg dtype
     cdt = torch_dtype(cfg.dtype) if h.dtype == torch.float32 else h.dtype
     x = apply_norm(h, p["ln1"], cfg.norm).to(cdt)
     if kind.mixer == "attn":
         window = cfg.sliding_window if kind.is_local else 0
-        q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-        k = torch.einsum("bld,dgk->blgk", x, p["wk"])
-        v = torch.einsum("bld,dgk->blgk", x, p["wv"])
-        if cfg.use_rope:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-        attn = flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
-                                  window=window, softcap=cfg.attn_logit_softcap)
+        if decode:
+            attn = _attend_decode(cfg, p, x, cache, pos, window)
+            new_cache = cache
+        else:
+            q = torch.einsum("bld,dhk->blhk", x, p["wq"])
+            k = torch.einsum("bld,dgk->blgk", x, p["wk"])
+            v = torch.einsum("bld,dgk->blgk", x, p["wv"])
+            if cfg.use_rope:
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+            attn = flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
+                                      window=window, softcap=cfg.attn_logit_softcap)
+            if make_cache:
+                pad = cache_len - k.shape[1]
+                if pad < 0:
+                    raise ValueError(f"a prompt of {k.shape[1]} tokens does not fit a "
+                                     f"cache of {cache_len}")
+                new_cache = {"k": _pad(k, (0, 0, 0, 0, 0, pad)),
+                             "v": _pad(v, (0, 0, 0, 0, 0, pad))}
         h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
     else:  # mamba
-        h = h + mamba_mixer(p, x, cfg)
+        out, mcache = mamba_mixer(p, x, cfg, cache=cache, decode=decode)
+        h = h + out
+        if decode:
+            for leaf in ("conv", "ssm"):
+                cache[leaf].copy_(mcache[leaf])
+            new_cache = cache
+        elif make_cache:
+            new_cache = mcache
     if kind.ffn != "none":
         x2 = apply_norm(h, p["ln2"], cfg.norm).to(cdt)
         h = h + mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
-    return h
+    return h, new_cache
 
 
 def _first_leaf(tree: PyTree) -> torch.Tensor:
@@ -199,12 +250,32 @@ def _index(tree: PyTree, r: int) -> PyTree:
 
 
 def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor, *,
-                positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """Loop over the stacked macro-blocks (the JAX ``lax.scan``)."""
+                positions: torch.Tensor, causal: bool = True,
+                cache: Optional[PyTree] = None, decode: bool = False,
+                pos: Optional[int] = None, make_cache: bool = False,
+                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[PyTree]]:
+    """Loop over the stacked macro-blocks (the JAX ``lax.scan``); returns
+    (h, caches or None).
+
+    The cache's leaves carry the leading ``n_repeat`` axis, as the scan
+    stacks them.  ``decode`` updates ``cache`` in place, one layer slice at
+    a time, and returns it.  ``make_cache`` fills a new cache, one layer
+    slice at a time."""
     n_repeat = _first_leaf(blocks_params).shape[0]
+    caches: Dict[str, Any] = {}
     for r in range(n_repeat):
         bp = _index(blocks_params, r)
         for i, kind in enumerate(kinds):
-            h = apply_layer(cfg, kind, bp[f"pos{i}"], h, positions=positions,
-                            causal=causal)
-    return h
+            c_i = _index(cache[f"pos{i}"], r) if decode else None
+            h, nc = apply_layer(cfg, kind, bp[f"pos{i}"], h, positions=positions,
+                                causal=causal, cache=c_i, decode=decode, pos=pos,
+                                make_cache=make_cache, cache_len=cache_len)
+            if make_cache and nc is not None:
+                slot = caches.setdefault(f"pos{i}", {})
+                for leaf, t in nc.items():
+                    if leaf not in slot:
+                        slot[leaf] = t.new_empty((n_repeat,) + tuple(t.shape))
+                    slot[leaf][r] = t
+    if decode:
+        return h, cache
+    return h, (caches or None)

@@ -206,3 +206,111 @@ def test_worker_on_cuda_serves_mamba2_through_ssd(cuda, tmp_path):
     assert tssd.launches.value == cfg.num_layers * forwards
     assert tflash.launches.value == 0
     assert tpatch.launches.value > 0
+
+
+# (b, nh, nkv, S, hd, pos): tests/test_kernels.py's shapes, the path's
+# stablelm-3b shape, a ragged S, mistral-nemo's GQA at hd 128
+DECODE_CASES = {
+    "gqa_2to1": (2, 4, 2, 128, 32, 38),
+    "mqa_8to1": (1, 8, 1, 256, 64, 255),
+    "mha_one_tile": (2, 4, 4, 128, 32, 127),
+    "stablelm_3b": (1, 32, 32, 2048, 80, 1055),
+    "ragged_S": (2, 4, 2, 1000, 32, 999),
+    "ragged_S_mid": (1, 4, 2, 333, 16, 200),
+    "mistral_nemo_gqa": (2, 32, 8, 4096, 128, 3000),
+    "head_dim_256": (1, 2, 1, 300, 256, 150),
+    # b * nkv * tiles above 8 blocks per SM: each split walks several tiles
+    "stablelm_3b_32k": (1, 32, 32, 32768, 80, 32767),
+    "mistral_nemo_32k_mid": (4, 32, 8, 32768, 128, 20000),
+    "many_small_tiles": (4, 8, 8, 8192, 32, 8191),
+}
+MULTI_TILE = ("stablelm_3b_32k", "mistral_nemo_32k_mid", "many_small_tiles")
+
+
+def _decode_inputs(cuda, b, nh, nkv, S, hd, dtype, seed=4):
+    from repro_torch.kernels.decode_attention import quantize_kv
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, nh, hd), generator=g, device=cuda).to(dtype)
+    k, ks = quantize_kv(torch.randn((b, S, nkv, hd), generator=g, device=cuda))
+    v, vs = quantize_kv(torch.randn((b, S, nkv, hd), generator=g, device=cuda))
+    return q, k, ks, v, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_decode_int8_matches_plain(cuda, name, dtype):
+    """f32 2e-5 and bf16 2e-2, as tests/test_kernels.py holds the TPU
+    kernel, the bf16 absolute term cut to 1e-2 of max|ref| (about one bf16
+    ulp of the output, which a long cache averages down below 2e-2); pos as
+    a device int32 and as a Python int give the same."""
+    from repro_torch.kernels import decode_attention as tdec
+    b, nh, nkv, S, hd, pos = DECODE_CASES[name]
+    args = _decode_inputs(cuda, b, nh, nkv, S, hd, dtype)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    before = tdec.launches.value
+    out = tdec.decode_attention_int8_op(*args, pos_t, scale=hd ** -0.5)
+    assert tdec.launches.value == before + 1
+    ref = tdec.decode_attention_int8_ref(*args, pos, scale=hd ** -0.5)
+    assert out.dtype == dtype and out.shape == (b, nh, hd)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    else:
+        atol = min(2e-2, 1e-2 * ref.float().abs().max().item())
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=atol)
+    again = tdec.decode_attention_int8(*args, pos, scale=hd ** -0.5)
+    torch.testing.assert_close(again, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", MULTI_TILE)
+def test_decode_int8_long_cases_split_over_several_tiles(cuda, name):
+    """The cases above that hold the cross-tile rescale: on this card each
+    split of the live keys spans more than one 128-key tile."""
+    from repro_torch.kernels.decode_attention.kernel import TILE, num_splits
+    b, nh, nkv, S, hd, pos = DECODE_CASES[name]
+    tiles = -(-(pos + 1) // TILE)
+    assert tiles > num_splits(cuda, b, S, nkv)
+
+
+def test_decode_int8_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels import decode_attention as tdec
+    q, k, ks, v, vs = _decode_inputs(cuda, 1, 4, 2, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tdec.decode_attention_int8(q[..., :24].contiguous(), k[..., :24].contiguous(), ks,
+                                   v[..., :24].contiguous(), vs, 3, scale=1.0)
+    with pytest.raises(TypeError, match="int8"):
+        tdec.decode_attention_int8(q, k.float(), ks, v, vs, 3, scale=1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tdec.decode_attention_int8(q.half(), k, ks, v, vs, 3, scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        tdec.decode_attention_int8(q, k, ks, v, vs, torch.tensor([3], device=cuda), scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.zeros((1, 32, 4), device=cuda).transpose(1, 2)  # q's shape, not layout
+        tdec.decode_attention_int8(strided, k, ks, v, vs, 3, scale=1.0)
+    with pytest.raises(ValueError, match="group"):
+        tdec.decode_attention_int8(q[:, :3].contiguous(), k, ks, v, vs, 3, scale=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_attention_int8(q, k, ks, v, vs, torch.tensor([3], dtype=torch.int32),
+                                   scale=1.0)
+
+
+@pytest.mark.parametrize("name", ["stablelm-3b", "mamba2-780m"])
+def test_prefill_decode_on_cuda_matches_cpu(cuda, name):
+    """The reduced model in float32: prefill (flash or ssd_scan on the
+    card) and three decode steps against the same steps on the CPU; 1e-4,
+    summation order only."""
+    from repro_torch.convert import params_from_flat, params_to_flat
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg = reduced(get_config(name))
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    params_cpu = params_from_flat(params_to_flat(params), "cpu", template=model.param_shapes())
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 35), dtype=np.int32))
+    prefill, serve = make_prefill_step(model, 48), make_serve_step(model)
+    got, cache = prefill(params, {"tokens": toks[:, :32].to(cuda)})
+    want, cache_cpu = prefill(params_cpu, {"tokens": toks[:, :32]})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for pos in range(32, 35):
+        got, cache = serve(params, cache, toks[:, pos].to(cuda), pos)
+        want, cache_cpu = serve(params_cpu, cache_cpu, toks[:, pos], pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -12,15 +12,22 @@ torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.decode_attention import decode_attention_int8 as pallas_decode  # noqa: E402
+from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention_int8_ref as jax_decode_int8_ref,
+)
+from repro.kernels.decode_attention import quantize_kv as jax_quantize_kv  # noqa: E402
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.kernels.snapshot_patch import patch_apply as pallas_patch  # noqa: E402
 from repro.kernels.ssd import ssd_scan as pallas_ssd  # noqa: E402
+from repro.models.attention import decode_attention as jax_decode_attention  # noqa: E402
 from repro.models.attention import naive_attention as jax_naive  # noqa: E402
 from repro.models.ssm import causal_conv as jax_causal_conv  # noqa: E402
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch import _build  # noqa: E402
 from repro_torch.convert import to_tensor  # noqa: E402
+from repro_torch.kernels import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import snapshot_patch as tpatch  # noqa: E402
 from repro_torch.kernels import ssd as tssd  # noqa: E402
@@ -268,6 +275,101 @@ def test_causal_conv_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
 
 
+# ---------------------------------------------------------- decode_attention
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_kv_bit_equal_to_jax(dtype):
+    """Round half to even in both: int8 values bit-equal, scales equal."""
+    rng = np.random.default_rng(6)
+    x = (rng.standard_normal((2, 300, 4, 64)) * 3).astype(np.float32)
+    x[0, :5, 0, :] = 0.0                       # all-zero rows: scale 1e-12
+    x[1, 7, 1, :4] = [127.0, -63.5, 0.5, 1.5]  # ties at .5
+    if dtype == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+    want_q, want_s = jax_quantize_kv(jnp.asarray(x))
+    got_q, got_s = tdec.quantize_kv(_to_torch(x, dtype))
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_allclose(tdec.dequantize_kv(got_q, got_s).numpy(),
+                               np.asarray(x, np.float32), rtol=0, atol=float(got_s.max()))
+
+
+def _int8_inputs(b, nh, nkv, S, hd, seed=0):
+    """tests/test_kernels.py's inputs: f32 q, K and V quantised by JAX."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, nh, hd)).astype(np.float32)
+    kf = rng.standard_normal((b, S, nkv, hd)).astype(np.float32)
+    vf = rng.standard_normal((b, S, nkv, hd)).astype(np.float32)
+    k, ks = jax_quantize_kv(jnp.asarray(kf))
+    v, vs = jax_quantize_kv(jnp.asarray(vf))
+    return q, kf, vf, [np.array(a) for a in (k, ks, v, vs)]
+
+
+@pytest.mark.parametrize("pos_frac", [0.3, 1.0])
+@pytest.mark.parametrize("b,nh,nkv,S,hd,bs", [
+    (2, 4, 2, 128, 32, 32),   # GQA 2:1
+    (1, 8, 1, 256, 64, 64),   # MQA
+    (2, 4, 4, 128, 32, 128),  # MHA, single block
+])
+def test_decode_int8_plain_matches_pallas(b, nh, nkv, S, hd, bs, pos_frac):
+    """tests/test_kernels.py's shapes and tolerance (2e-5): the Pallas
+    kernel in interpret mode against the port's plain version."""
+    q, _, _, quant = _int8_inputs(b, nh, nkv, S, hd)
+    pos = int(pos_frac * (S - 1))
+    want = pallas_decode(jnp.asarray(q), *(jnp.asarray(a) for a in quant),
+                         jnp.asarray(pos, jnp.int32), scale=hd ** -0.5, block_s=bs,
+                         interpret=True)
+    got = tdec.decode_attention_int8_op(torch.from_numpy(q),
+                                        *(torch.from_numpy(a) for a in quant),
+                                        torch.tensor([pos], dtype=torch.int32),
+                                        scale=hd ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_int8_quantization_error_within_2pct():
+    """tests/test_kernels.py's bound: against the model-dtype decode path
+    on the unquantised cache, err / max|ref| < 2%."""
+    b, nh, nkv, S, hd = 2, 8, 4, 256, 64
+    q, kf, vf, quant = _int8_inputs(b, nh, nkv, S, hd, seed=1)
+    got = tdec.decode_attention_int8_op(torch.from_numpy(q),
+                                        *(torch.from_numpy(a) for a in quant), S - 1,
+                                        scale=hd ** -0.5)
+    full = jax_decode_attention(jnp.asarray(q)[:, None], jnp.asarray(kf), jnp.asarray(vf),
+                                jnp.asarray(S - 1, jnp.int32), scale=hd ** -0.5)[:, 0]
+    full = np.asarray(full)
+    assert np.abs(got.numpy() - full).max() / np.abs(full).max() < 0.02
+
+
+@pytest.mark.parametrize("S,pos", [(100, 77), (37, 36), (300, 0)])
+def test_decode_int8_ragged_S_matches_jax_ref(S, pos):
+    """Any S (the Pallas kernel needs S % block == 0; JAX's plain version
+    does not)."""
+    q, _, _, quant = _int8_inputs(1, 4, 2, S, 32, seed=S)
+    want = jax_decode_int8_ref(jnp.asarray(q), *(jnp.asarray(a) for a in quant),
+                               jnp.asarray(pos, jnp.int32), scale=32 ** -0.5)
+    got = tdec.decode_attention_int8_op(torch.from_numpy(q),
+                                        *(torch.from_numpy(a) for a in quant), pos,
+                                        scale=32 ** -0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_decode_int8_op_routes():
+    q, _, _, quant = _int8_inputs(1, 4, 2, 64, 32)
+    args = [torch.from_numpy(q)] + [torch.from_numpy(a) for a in quant]
+    before = tdec.launches.value
+    out = tdec.decode_attention_int8_op(*args, 10, scale=0.2)
+    assert tdec.launches.value == before  # the plain version is no launch
+    assert torch.equal(out, tdec.decode_attention_int8_ref(*args, 10, scale=0.2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdec.decode_attention_int8(*args, 10, scale=0.2)  # the kernel takes CUDA only
+    with pytest.raises(ValueError, match="devices"):
+        tdec.decode_attention_int8_op(*args[:4], args[4].to("meta"), 10, scale=0.2)
+    with pytest.raises(ValueError, match="devices"):
+        tdec.decode_attention_int8_op(*args, torch.tensor([10], dtype=torch.int32,
+                                                          device="meta"), scale=0.2)
+
+
 # --------------------------------------------------------------------- build
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -275,6 +377,8 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc", lambda: "false")
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build_all(["snapshot_patch"])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build_all(["decode_attention_int8"])
     assert not list((tmp_path / "build").glob("*.so"))
 
 

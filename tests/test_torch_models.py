@@ -70,9 +70,10 @@ def test_unported_families_raise(name, roadmap):
 
 
 def test_mamba2_builds_and_its_decode_branch_raises():
-    """The SSM family builds (the mixer's full-sequence branch is ported);
-    its decode branch waits for the prefill-and-decode slice."""
-    from repro_torch.models.ssm import conv_step, mamba_mixer, ssd_decode_step
+    """The SSM family builds; its decode branch takes one token and a cache
+    and raises without them (the decode half is held to JAX in
+    tests/test_torch_decode.py)."""
+    from repro_torch.models.ssm import mamba_mixer
     cfg = reduced(get_config("mamba2-780m"))
     params = build_model(cfg).init(0, device="cpu")
     pos0 = params["blocks"]["pos0"]
@@ -81,11 +82,14 @@ def test_mamba2_builds_and_its_decode_branch_raises():
                                np.log(np.arange(1, cfg.ssm_heads + 1, dtype=np.float32)))
     layer = {k: v[0] for k, v in pos0.items() if not isinstance(v, dict)}
     h = torch.zeros((1, 1, cfg.d_model))
-    for fn in (ssd_decode_step, conv_step):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="one token and a cache"):
         mamba_mixer(layer, h, cfg, decode=True)
+    cache = {"conv": torch.zeros((1, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)),
+             "ssm": torch.zeros((1, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state))}
+    with pytest.raises(ValueError, match="one token and a cache"):
+        mamba_mixer(layer, torch.zeros((1, 2, cfg.d_model)), cfg, cache=cache, decode=True)
+    out, new = mamba_mixer(layer, h, cfg, cache=cache, decode=True)
+    assert out.shape == h.shape and new["ssm"].dtype == torch.float32
 
 
 def _carry(cfg_name, reduce, seq, seed=0, dtype=None):
@@ -135,7 +139,7 @@ def test_mamba_mixer_matches_jax(seq):
     want, _ = jax_mixer(jp, jax.numpy.asarray(h), jcfg)
     tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items() if not isinstance(v, dict)}
     with torch.no_grad():
-        got = mamba_mixer(tp, torch.from_numpy(h), reduced(get_config("mamba2-780m")))
+        got, _ = mamba_mixer(tp, torch.from_numpy(h), reduced(get_config("mamba2-780m")))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 

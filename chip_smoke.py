@@ -7,16 +7,20 @@ Phases, each of which passes or makes the script exit non-zero:
 
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit, the TF32 flags (set off: float32 matmuls in full float32);
-2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``;
+2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``; the
+   count of HGMMA and HMMA instructions in the flash library's SASS, which
+   must show both (wgmma for bf16, mma.sync for the 3xTF32 float32 path);
 3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
    decode_attention_int8) against their plain PyTorch versions on the card,
-   at their paths' shapes (each path's shape listed first): error; device
+   at their paths' shapes (each path's shape listed first; flash also at
+   bf16 prefill lengths, S 1024 to 4096): error; device
    times of kernel, plain version and, for attention, PyTorch's
    ``scaled_dot_product_attention`` as a yardstick (never used by the
    port) and, for int8 decode, the model-dtype ``decode_attention`` on the
    unquantised cache, each the median of 30 replays of a CUDA graph of the
-   calls between CUDA events; the bound; and the kernel's time per eager
-   call, host dispatch included;
+   calls between CUDA events; the bound (float32 flash against 3xTF32's
+   495 / 3 TFLOP/s); and the kernel's time per eager call, host dispatch
+   included;
 4. the dense main path: faas-bench at full width served through
    ``Worker.invoke`` on the card, forced-cold under every strategy plus a
    warm hit, checked against a CPU worker; the kernel launch counters are
@@ -35,7 +39,9 @@ Phases, each of which passes or makes the script exit non-zero:
    carried state must fail;
 7. prefill and decode through ``make_prefill_step`` / ``make_serve_step``:
    stablelm-3b (2 layers, bf16) prefills 1024 tokens into a 2048 cache
-   (one flash launch per layer) and decodes 32 teacher-forced tokens, each
+   (one flash launch per layer, timed between CUDA events in two further
+   prefills: as it runs, and with the card held busy so that the events
+   bracket device time alone) and decodes 32 teacher-forced tokens, each
    step's logits against one forward over the 1056 tokens; beside every
    decode step's attention the int8 kernel runs on that step's quantised
    cache (its own path: layers x steps launches), held to its plain
@@ -75,6 +81,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# the float32 flash kernel runs 3xTF32 on the tensor cores: three TF32
+# products (495 TFLOP/s) for each float32 one
+PEAK_OPS_3XTF32 = 495e12 / 3
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 L2_ROTATE_BYTES = 150 * 10**6   # 3x the H100's 50 MB L2
@@ -207,6 +216,28 @@ def phase_build(ctx, torch, rt):
                 print(f"ptxas[{name}]: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
+    sass = flash_sass_counts(_build)
+    emit({"phase": "build", "flash_attention_sass": sass})
+    if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
+        fail(f"flash_attention's SASS lacks tensor-core instructions: {sass}")
+
+
+def flash_sass_counts(_build):
+    """HGMMA (wgmma: the bf16 path) and HMMA (mma.sync: the 3xTF32 path)
+    instructions in the built flash library, by the cuobjdump beside nvcc."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return "not measured"
+    r = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        return "not measured"
+    ops = []
+    for ln in r.stdout.splitlines():
+        words = ln.split()
+        if len(words) > 2 and words[0].startswith("/*") and words[0].endswith("*/"):
+            ops.append(words[2] if words[1].startswith("@") else words[1])
+    return {name: sum(op.startswith(name) for op in ops) for name in ("HGMMA", "HMMA")}
 
 
 # ------------------------------------------------------------------- phase 3
@@ -285,7 +316,9 @@ def device_patch_tail_case(torch, gen):
 
 
 def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
-               window=0, softcap=0.0):
+               window=0, softcap=0.0, quick=False):
+    """The kernel against its plain version; ``quick``: fewer replays of the
+    plain version and SDPA (their S x S scores are GBs at prefill lengths)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
@@ -306,8 +339,9 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
         fail(f"flash_attention {label}: max abs err {err} outside {tol}")
     # q, k, v were just written by the projections: L2-resident is the
     # main path's case, so one input set is replayed
+    reps = dict(reps=10, per_graph=2) if quick else {}
     kernel_ms = device_ms(torch, [lambda: flash_attention(qt, kt, vt, **kw)])
-    plain_ms = device_ms(torch, [lambda: attention_ref(qt, kt, vt, **kw)])
+    plain_ms = device_ms(torch, [lambda: attention_ref(qt, kt, vt, **kw)], **reps)
     qp = torch.arange(S, device=dev)[:, None]
     kp = torch.arange(S, device=dev)[None, :]
     allowed = torch.ones((S, S), dtype=torch.bool, device=dev)
@@ -318,7 +352,8 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
     pairs = int(allowed.sum())
     ops = 4.0 * b * nh * pairs * hd
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
-    t_ops = ops / PEAK_OPS[dname] * 1e3
+    peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     library_ms = None
     if softcap == 0.0:
@@ -326,10 +361,13 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
         ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
         mask = None if (causal and window == 0) else allowed
         library_ms = device_ms(torch, [lambda: F.scaled_dot_product_attention(
-            qt, ke, ve, attn_mask=mask, is_causal=mask is None and causal, scale=scale)])
+            qt, ke, ve, attn_mask=mask, is_causal=mask is None and causal, scale=scale)],
+            **reps)
     case = {"kernel": "flash_attention", "case": label, "dtype": dname,
             "b": b, "nh": nh, "nkv": nkv, "S": S, "hd": hd, "causal": causal,
             "window": window, "softcap": softcap, "max_abs_err": err,
+            "ops": ops, "bytes": nbytes,
+            "ops_peak": "3xTF32, 495/3 TFLOP/s" if dname == "float32" else "bf16, 989 TFLOP/s",
             "kernel_ms": kernel_ms,
             "eager_ms": eager_ms(torch, lambda: flash_attention(qt, kt, vt, **kw)),
             "plain_ms": plain_ms,
@@ -499,6 +537,18 @@ def phase_kernels(ctx, torch, rt):
         flash_case(ctx, torch, gen, "window 64", 1, 6, 6, 256, 64, dt, window=64)
         flash_case(ctx, torch, gen, "softcap 20", 1, 6, 6, 256, 64, dt, softcap=20.0)
     flash_case(ctx, torch, gen, "bidirectional, ragged", 2, 4, 2, 77, 80, f32, causal=False)
+    # prefill lengths, bf16: the issue's long-sequence configurations
+    flash_case(ctx, torch, gen, "stablelm-3b prefill S=1024", 1, 32, 32, 1024, 80, bf16,
+               quick=True)
+    flash_case(ctx, torch, gen, "mistral-nemo GQA 32:8 S=4096", 1, 32, 8, 4096, 128, bf16,
+               quick=True)
+    flash_case(ctx, torch, gen, "gemma-2b MQA 8:1 S=1024", 1, 8, 1, 1024, 256, bf16,
+               quick=True)
+    flash_case(ctx, torch, gen, "gemma2-27b heads 32:16, softcap 50, S=4096", 1, 32, 16,
+               4096, 128, bf16, softcap=50.0, quick=True)
+    flash_case(ctx, torch, gen, "window 256, 32:16, S=2048", 1, 32, 16, 2048, 128, bf16,
+               window=256, quick=True)
+    torch.cuda.empty_cache()
 
     # the SSM path's case first: mamba2-780m, 1024-token request, 4 chunks
     m2 = dict(nh=48, hd=64, ds=128, chunk=256)
@@ -840,6 +890,17 @@ def phase_decode(ctx, torch, rt):
         counts = _read()                            # and ends here
         # the same again without the int8 check beside it, for the times
         _, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        # twice more with CUDA events around each flash launch: as the
+        # prefill runs (host dispatch included where the card waits for it),
+        # and with the card held busy before each launch, so that the
+        # events bracket the kernel's device time alone
+        flash_events, flash_held = [], []
+        with _flash_timed(torch, flash_events):
+            _, _, prefill_events_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        with _flash_timed(torch, flash_held, hold=True):
+            _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        flash_ms = [a.elapsed_time(b) for a, b in flash_held]
+        flash_stream_ms = [a.elapsed_time(b) for a, b in flash_events]
         shifted = _clone_cache(cache)
         _, decode_ms = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
         with _rope_off_by_one():
@@ -868,10 +929,15 @@ def phase_decode(ctx, torch, rt):
           "int8_vs_model_dtype_rel_max": int8_rel,
           "int8_vs_model_dtype_rel_per_step": [round(c["rel"], 6) for c in checks],
           "prefill_s": prefill_s, "prefill_first_s": prefill_first_s,
+          "flash_device_ms_in_prefill": sum(flash_ms), "flash_device_ms_per_layer": flash_ms,
+          "flash_stream_ms_per_layer": flash_stream_ms,
+          "prefill_s_with_flash_events": prefill_events_s,
+          "flash_device_share_of_prefill": sum(flash_ms) / (prefill_events_s * 1e3),
+          "flash_stream_share_of_prefill": sum(flash_stream_ms) / (prefill_events_s * 1e3),
           "decode_ms_per_token": decode_ms, "decode_ms_per_token_with_int8_check": ms_checked})
     if not np.isfinite(got).all() or not np.allclose(got, want, **tol):
         fail(f"stablelm-3b decode: logits differ from the forward's rows by {err}")
-    if counts["flash_attention"] != cfg.num_layers:
+    if counts["flash_attention"] != cfg.num_layers or len(flash_held) != cfg.num_layers:
         fail(f"stablelm-3b prefill: flash launches {counts['flash_attention']} != layers")
     if counts["decode_attention_int8"] != cfg.num_layers * steps:
         fail(f"decode_attention_int8 launches {counts['decode_attention_int8']} != layers x "
@@ -968,6 +1034,34 @@ def _rope_off_by_one():
         yield
     finally:
         transformer.apply_rope = rope
+
+
+@contextlib.contextmanager
+def _flash_timed(torch, events, hold=False):
+    """CUDA events before and after every flash launch of the model, into
+    ``events`` as (start, end) pairs.  ``hold``: a spin kernel of about 2 ms
+    runs first, so that the host has queued the launch before the card
+    reaches the start event."""
+    from repro_torch.models import transformer
+
+    op = transformer.flash_attention_op
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(4_000_000)
+        start.record()
+        out = op(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    transformer.flash_attention_op = timed
+    try:
+        yield
+    finally:
+        transformer.flash_attention_op = op
 
 
 @contextlib.contextmanager

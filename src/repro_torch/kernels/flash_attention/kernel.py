@@ -1,17 +1,25 @@
 """ctypes binding of the CUDA flash-attention kernel
-(``csrc/flash_attention.cu``).
+(``csrc/flash_attention.cu``: TMA-fed tensor cores, ``wgmma`` for bf16 and
+3xTF32 ``mma.sync`` for float32).
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention.flash_attention``.
 Takes the TPU kernel's (b, heads, S, hd) view, with any (batch, head, seq)
-strides and a unit-stride head dim, so the model's (b, S, heads, hd)
-tensors pass as transposed views with no copy; the output is allocated in
-the model's layout and returned as the matching view.  Unlike the TPU
-kernel it accepts any S (ragged tails are masked).
+strides that are multiples of 16 bytes and a unit-stride head dim, so the
+model's (b, S, heads, hd) tensors pass as transposed views with no copy; the
+output is allocated in the model's layout and returned as the matching view.
+Unlike the TPU kernel it accepts any S (ragged tails are masked).
+
+``launch_plan`` is the kernel's launch plan in plain Python (instantiated
+width, slabs, tile rows, stages, grid, shared memory), so that the CPU tests
+reach it; the launcher refuses a plan that differs from its instantiations.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -23,7 +31,96 @@ launches = LaunchCounter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TILE_Q = 64                  # q rows per CTA: one consumer warpgroup
+THREADS = 160                # the warpgroup and one producer warp
+SLAB_BYTES = 128             # the TMA box and wgmma swizzle row
+ALIGN = 16                   # TMA: base address and strides in bytes
+SMEM_PER_BLOCK = 232_448     # H100: the most one block may opt in to
+SMEM_PER_SM = 233_472        # H100: 228 KiB an SM for resident blocks ...
+SMEM_RESERVED = 1_024        # ... of which the runtime takes 1 KiB a block
+#: head-dim widths the kernel is instantiated for, per element size: the
+#: head dim is zero-padded in shared memory up to the next one
+WIDTHS = {4: (32, 64, 128, 256), 2: (64, 128, 256)}
+#: launcher errors beyond the CUDA runtime's
+_ERRORS = {10001: "cuTensorMapEncodeTiled not found in the driver",
+           10002: "cuTensorMapEncodeTiled refused a tensor map",
+           10003: "the launch plan matches no instantiation of the kernel"}
 _fn_cache = []
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How the kernel runs one call."""
+
+    head_dim: int
+    width: int               # instantiated head-dim width (zero-padded)
+    slab: int                # elements of one 128-byte slab
+    slabs: int               # slabs across the width
+    tile_q: int              # q rows per CTA
+    tile_k: int              # keys per K / V tile
+    stages: int              # K / V tiles in flight
+    smem_bytes: int          # dynamic shared memory of one CTA
+    blocks_per_sm: int       # CTAs an SM holds by shared memory
+    grid: Tuple[int, int, int]  # (heads, batch, q tiles)
+    threads: int = THREADS
+
+    @property
+    def padding_waste(self) -> float:
+        """Share of the tensor-core work (bf16) or shared memory (float32)
+        spent on zero padding of the head dim."""
+        return 1.0 - self.head_dim / self.width
+
+
+def _smem(itemsize: int, width: int, tile_k: int, stages: int) -> int:
+    tiles = (TILE_Q + 2 * stages * tile_k) * width * itemsize
+    return tiles + 8 * (1 + 2 * stages) + 1024  # mbarriers; 1024-byte alignment
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(dtype: torch.dtype, head_dim: int, *, batch: int = 1, heads: int = 1,
+                seq: int = 1) -> FlashPlan:
+    """The launch plan for ``dtype`` (float32 or bfloat16) at ``head_dim``;
+    raises ``ValueError`` naming what the design cannot take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+    itemsize = 4 if dtype == torch.float32 else 2
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim} is not a multiple of 8 in 8..{MAX_HEAD_DIM}: "
+                         "the tensor-core tiles take the head dim 8 at a time")
+    width = next(w for w in WIDTHS[itemsize] if w >= head_dim)
+    tile_k = 32 if itemsize == 4 and width == 256 else 64
+    for per_sm in (2, 1):
+        for stages in (3, 2):
+            smem = _smem(itemsize, width, tile_k, stages)
+            if smem <= SMEM_PER_BLOCK and per_sm * (smem + SMEM_RESERVED) <= SMEM_PER_SM:
+                slab = SLAB_BYTES // itemsize
+                return FlashPlan(head_dim=head_dim, width=width, slab=slab,
+                                 slabs=width // slab, tile_q=TILE_Q, tile_k=tile_k,
+                                 stages=stages, smem_bytes=smem, blocks_per_sm=per_sm,
+                                 grid=(heads, batch, -(-seq // TILE_Q)))
+    raise ValueError(f"head dim {head_dim}: no tiling fits {SMEM_PER_BLOCK} bytes")
+
+
+def alignment_problem(name: str, data_ptr: int, shape: Sequence[int],
+                      strides: Sequence[int], itemsize: int) -> Optional[str]:
+    """Why TMA cannot read a (b, heads, seq, hd) tensor, or None: the head
+    dim must have unit stride, and the base address and every (batch, head,
+    seq) stride of a dim longer than 1 must be a multiple of 16 bytes."""
+    if strides[3] != 1 and shape[3] > 1:
+        return f"{name} needs a unit-stride head dim"
+    if data_ptr % ALIGN:
+        return f"{name}: base address {data_ptr:#x} is not a multiple of {ALIGN} bytes"
+    for dim, what in ((2, "row"), (1, "head"), (0, "batch")):
+        if shape[dim] > 1 and (strides[dim] * itemsize) % ALIGN:
+            return (f"{name}: {what} stride of {strides[dim] * itemsize} bytes is not a "
+                    f"multiple of {ALIGN} bytes")
+    return None
+
+
+def _tma_strides(t: torch.Tensor, head_dim: int) -> Tuple[int, int, int]:
+    """(batch, head, seq) strides for the tensor map; a dim of size 1 is
+    never stepped, so its stride is set to one that TMA accepts."""
+    return tuple(s if n > 1 else head_dim for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
 def _fn():
@@ -31,7 +128,7 @@ def _fn():
         fn = _build.load("flash_attention").flash_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p,
-                       ctypes.c_float, i, i, ctypes.c_float, p]
+                       ctypes.c_float, i, i, ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn_cache.append(fn)
     return _fn_cache[0]
@@ -58,8 +155,6 @@ def flash_attention(
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if nkv == 0 or nh % nkv:
         raise ValueError(f"{nh} query heads do not group over {nkv} kv heads")
-    if not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
     code = _DTYPES.get(q.dtype)
     if code is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
@@ -67,15 +162,23 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs a unit-stride head dim")
+    plan = launch_plan(q.dtype, hd, batch=b, heads=nh, seq=S)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+        if why:
+            raise ValueError(f"flash_attention: {why}")
     out = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     strides = (ctypes.c_int64 * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+        *_tma_strides(q, hd), *_tma_strides(k, hd), *_tma_strides(v, hd),
+        *out.stride()[:3])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), b, nh, nkv, S, Sk, hd, strides,
                    float(scale), int(causal), int(window), float(softcap),
-                   stream)
+                   plan.width, plan.tile_k, plan.stages, plan.smem_bytes, stream)
+    if rc in _ERRORS:
+        raise RuntimeError(f"flash_attention: {_ERRORS[rc]} (error {rc})")
     check_launch("flash_attention", rc)
     launches.add()
     return out

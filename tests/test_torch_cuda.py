@@ -64,6 +64,10 @@ FLASH_CASES = {
     "window_16": (1, 4, 4, 128, 16, True, 16, 0.0),
     "softcap_20": (1, 4, 2, 64, 32, True, 0, 20.0),
     "head_dim_256": (1, 2, 1, 40, 256, True, 0, 0.0),
+    "gqa_4to1_hd128_s1024": (1, 8, 2, 1024, 128, True, 0, 0.0),
+    "mqa_hd256_s1024": (1, 8, 1, 1024, 256, True, 0, 0.0),
+    "single_token": (2, 4, 2, 1, 64, True, 0, 0.0),
+    "window_crosses_tile_ragged": (1, 4, 2, 200, 64, True, 48, 0.0),
 }
 
 
@@ -85,6 +89,27 @@ def test_flash_matches_plain(cuda, name, dtype):
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
+def test_flash_takes_strided_views(cuda):
+    """q, k, v as slices of one fused (b, s, 3 nh, hd) projection, and q as
+    a (b, h, s) view of a (s, b, h) buffer: no copy, the result as plain."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, S, nh, hd = 2, 150, 4, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((b, S, 3 * nh, hd), generator=g, device=cuda).to(dtype)
+        q, k, v = (qkv[:, :, i * nh:(i + 1) * nh].transpose(1, 2) for i in range(3))
+        assert not q.is_contiguous()
+        kw = dict(scale=hd ** -0.5, causal=True, window=0, softcap=0.0)
+        out = tflash.flash_attention(q, k, v, **kw)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(out, tflash.attention_ref(q, k, v, **kw),
+                                   rtol=tol, atol=tol)
+        sbh = torch.randn((S, b, nh, hd), generator=g, device=cuda).to(dtype)
+        q2 = sbh.permute(1, 2, 0, 3)
+        out = tflash.flash_attention(q2, k, v, **kw)
+        torch.testing.assert_close(out, tflash.attention_ref(q2, k, v, **kw),
+                                   rtol=tol, atol=tol)
+
+
 def test_flash_rejects_what_it_cannot_take(cuda):
     q = torch.zeros((1, 4, 8, 16), device=cuda)
     with pytest.raises(TypeError):
@@ -94,6 +119,19 @@ def test_flash_rejects_what_it_cannot_take(cuda):
                                scale=1.0)
     with pytest.raises(ValueError, match="group"):
         tflash.flash_attention(q, q[:, :3], q[:, :3], scale=1.0)
+    # the tensor-core tiles take the head dim 8 at a time, up to 256
+    for hd in (20, 264):
+        x = torch.zeros((1, 4, 8, hd), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            tflash.flash_attention(x, x, x, scale=1.0)
+    # TMA reads rows whose stride is a multiple of 16 bytes from an aligned base
+    odd = torch.zeros((1, 4, 8, 33), device=cuda)[..., :32]
+    x = torch.zeros((1, 4, 8, 32), device=cuda)
+    with pytest.raises(ValueError, match="row stride of 132 bytes"):
+        tflash.flash_attention(x, odd, odd, scale=1.0)
+    shifted = torch.zeros((1, 4, 8, 40), device=cuda)[..., 1:33]
+    with pytest.raises(ValueError, match="base address"):
+        tflash.flash_attention(shifted, x, x, scale=1.0)
 
 
 def test_worker_on_cuda_launches_both_kernels(cuda, tmp_path):

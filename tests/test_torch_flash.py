@@ -1,0 +1,282 @@
+"""The Hopper flash-attention kernel's design, on the CPU.
+
+The kernel (``src/repro_torch/csrc/flash_attention.cu``) runs only on the
+card.  What can be checked here is its arithmetic and its launch plan:
+
+- an emulation in plain PyTorch of what the kernel computes, tile by tile:
+  float32 products in 3xTF32 (each operand split into hi and lo parts whose
+  low 13 mantissa bits are zero, hi.hi + hi.lo + lo.hi), bfloat16 products
+  with P rounded to bf16 before P.V, the online softmax over key tiles of
+  the plan's size.  It is held against the Pallas kernel in interpret mode
+  and against the JAX plain version at the kernel tolerances (f32 2e-5, bf16
+  2e-2), and single-term TF32 must fail 2e-5: that is why the f32 path
+  splits;
+- the launch plan (``launch_plan``, ``alignment_problem``): every model
+  configuration of the port, full and reduced, fits the card's shared
+  memory, each plan is an instantiation of the kernel, and what TMA cannot
+  read is refused with its reason.
+"""
+
+import re
+from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro_torch.configs import get_config, list_archs, reduced  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    SMEM_PER_BLOCK,
+    SMEM_PER_SM,
+    SMEM_RESERVED,
+    alignment_problem,
+    launch_plan,
+)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ------------------------------------------------------------ the emulation
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x with the low 13 mantissa bits cleared: what a TF32 operand keeps."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, arith: str) -> torch.Tensor:
+    if arith == "3xtf32":
+        ahi, bhi = _tf32(a), _tf32(b)
+        alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+        return alo @ bhi + ahi @ blo + ahi @ bhi
+    if arith == "tf32":
+        return _tf32(a) @ _tf32(b)
+    return a @ b  # bf16 values: products exact in f32, f32 sums
+
+
+def emulate(q, k, v, *, scale, causal, window, softcap, arith):
+    """The kernel's arithmetic on (b, nh, S, hd) float32 tensors (holding
+    bf16 values for ``arith="bf16"``): per key tile of the launch plan,
+    scores, softcap, masks, the online softmax in f32, P (rounded to bf16
+    for the bf16 path) times V."""
+    b, nh, S, hd = q.shape
+    nkv, Sk = k.shape[1], k.shape[2]
+    dtype = torch.bfloat16 if arith == "bf16" else torch.float32
+    tile_k = launch_plan(dtype, hd).tile_k
+    kx, vx = (x.repeat_interleave(nh // nkv, dim=1) for x in (k, v))
+    m = torch.full((b, nh, S, 1), -1e30)
+    l = torch.zeros((b, nh, S, 1))
+    acc = torch.zeros((b, nh, S, hd))
+    qp = torch.arange(S)[:, None]
+    for k0 in range(0, Sk, tile_k):
+        kt, vt = kx[:, :, k0:k0 + tile_k], vx[:, :, k0:k0 + tile_k]
+        s = _matmul(q, kt.transpose(-1, -2), arith) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((S, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window > 0:
+            ok &= qp - kp < window
+        s = torch.where(ok, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if arith == "bf16":
+            p = p.bfloat16().float()
+        acc = acc * alpha + _matmul(p, vt, arith)
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+# (b, nh, nkv, S, hd, causal, window, softcap, Pallas block): the Pallas
+# kernel needs S % block == 0
+PALLAS_CASES = {
+    "mha_causal": (2, 4, 4, 128, 32, True, 0, 0.0, 32),
+    "bidirectional": (1, 2, 2, 64, 16, False, 0, 0.0, 32),
+    "gqa_4to1": (1, 8, 2, 64, 32, True, 0, 0.0, 32),
+    "mqa": (2, 4, 1, 64, 32, True, 0, 0.0, 16),
+    "window_16": (1, 4, 4, 128, 16, True, 16, 0.0, 32),
+    "softcap_20": (1, 4, 2, 64, 32, True, 0, 20.0, 32),
+}
+
+# tests/test_torch_cuda.py's FLASH_CASES shapes, (b, nh, nkv, S, hd, causal,
+# window, softcap): ragged lengths and other head dims, held against the JAX
+# plain version only
+CUDA_CASES = {
+    "mha_causal": (2, 4, 4, 128, 64, True, 0, 0.0),
+    "bidirectional_ragged": (1, 2, 2, 77, 80, False, 0, 0.0),
+    "gqa_4to1": (1, 8, 2, 64, 32, True, 0, 0.0),
+    "mqa": (2, 4, 1, 37, 32, True, 0, 0.0),
+    "window_16": (1, 4, 4, 128, 16, True, 16, 0.0),
+    "softcap_20": (1, 4, 2, 64, 32, True, 0, 20.0),
+    "head_dim_256": (1, 2, 1, 40, 256, True, 0, 0.0),
+    "single_token": (2, 4, 2, 1, 64, True, 0, 0.0),
+    "window_crosses_tile_ragged": (1, 4, 2, 200, 64, True, 48, 0.0),
+}
+
+
+def _inputs(case, dtype, seed=0):
+    b, nh, nkv, S, hd = case[:5]
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(s).astype(np.float32)
+          for s in ((b, nh, S, hd), (b, nkv, S, hd), (b, nkv, S, hd))]
+    if dtype == "bfloat16":
+        xs = [x.astype(ml_dtypes.bfloat16) for x in xs]
+    kw = dict(scale=hd ** -0.5, causal=case[5], window=case[6], softcap=case[7])
+    return xs, kw
+
+
+def _emulated(xs, kw, dtype, arith=None):
+    arith = arith or ("3xtf32" if dtype == "float32" else "bf16")
+    t = [torch.from_numpy(np.asarray(x, np.float32)) for x in xs]
+    out = emulate(*t, arith=arith, **kw)
+    return out.to(_TORCH[dtype]).float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(PALLAS_CASES))
+def test_emulated_kernel_matches_pallas_and_jax_ref(name, dtype):
+    case = PALLAS_CASES[name]
+    xs, kw = _inputs(case, dtype)
+    got = _emulated(xs, kw, dtype)
+    tol = dict(rtol=TOL[dtype], atol=TOL[dtype])
+    want = pallas_flash(*(jnp.asarray(x) for x in xs), block_q=case[8], block_k=case[8],
+                        interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **tol)
+    ref = jax_attention_ref(*(jnp.asarray(x) for x in xs), **kw)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
+def test_emulated_kernel_matches_jax_ref_at_card_shapes(name, dtype):
+    xs, kw = _inputs(CUDA_CASES[name], dtype, seed=1)
+    got = _emulated(xs, kw, dtype)
+    ref = jax_attention_ref(*(jnp.asarray(x) for x in xs), **kw)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("name", sorted(PALLAS_CASES))
+def test_single_term_tf32_fails_the_float32_tolerance(name):
+    """The control: one TF32 product per pair keeps about three decimal
+    digits, so it cannot meet 2e-5 where 3xTF32 does."""
+    xs, kw = _inputs(PALLAS_CASES[name], "float32")
+    ref = np.asarray(jax_attention_ref(*(jnp.asarray(x) for x in xs), **kw), np.float32)
+    split = _emulated(xs, kw, "float32", arith="3xtf32")
+    single = _emulated(xs, kw, "float32", arith="tf32")
+    np.testing.assert_allclose(split, ref, rtol=2e-5, atol=2e-5)
+    assert not np.allclose(single, ref, rtol=2e-5, atol=2e-5), (
+        f"single-term TF32 within 2e-5 (max err {np.abs(single - ref).max():.2e})")
+
+
+def test_emulation_rounds_p_to_bf16_only_on_the_bf16_path():
+    """bf16 P moves the output by more than the f32 path's error, and stays
+    well inside the bf16 tolerance."""
+    xs, kw = _inputs(PALLAS_CASES["mha_causal"], "float32")
+    t = [torch.from_numpy(x) for x in xs]
+    exact = emulate(*t, arith="3xtf32", **kw)
+    p_bf16 = emulate(*[x.bfloat16().float() for x in t], arith="bf16", **kw)
+    inputs_bf16 = jax_attention_ref(*(jnp.asarray(x.astype(ml_dtypes.bfloat16).astype(
+        np.float32)) for x in xs), **kw)
+    err = np.abs(p_bf16.numpy() - np.asarray(inputs_bf16)).max()
+    assert 2e-5 < err < 2e-2
+    ref = jax_attention_ref(*(jnp.asarray(x) for x in xs), **kw)
+    assert np.abs(exact.numpy() - np.asarray(ref)).max() < 2e-5
+
+
+# ---------------------------------------------------------- the launch plan
+
+def _attention_configs():
+    out = []
+    for name in ["faas_bench"] + list_archs():
+        cfg = get_config(name)
+        if cfg.attention_free:
+            continue
+        out += [(name, cfg), (name + "-reduced", reduced(cfg))]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,cfg", _attention_configs(), ids=lambda x: x
+                         if isinstance(x, str) else "")
+def test_plan_takes_every_config(name, cfg, dtype):
+    plan = launch_plan(dtype, cfg.head_dim, batch=2, heads=cfg.num_heads, seq=1000)
+    assert plan.width >= cfg.head_dim and plan.slabs * plan.slab == plan.width
+    assert plan.slab * dtype.itemsize == 128
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.blocks_per_sm * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM
+    assert plan.stages >= 2 and plan.tile_q == 64 and plan.tile_k % 16 == 0
+    tiles = (plan.tile_q + 2 * plan.stages * plan.tile_k) * plan.width * dtype.itemsize
+    assert plan.smem_bytes >= tiles
+    assert plan.grid == (cfg.num_heads, 2, 16)
+
+
+def test_every_plan_is_an_instantiation():
+    """The launcher refuses a plan it has no instantiation for: every head
+    dim the plan takes maps to one (dtype, width, tile_k, stages, CTAs an
+    SM) that the source instantiates, with the same shared-memory size."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "flash_attention.cu").read_text()
+    inst = set(re.findall(r"launch<(float|__nv_bfloat16), (\d+), (\d+), (\d+), (\d+)>", src))
+    assert inst
+    names = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    seen = set()
+    for dtype in names:
+        for hd in range(8, 257, 8):
+            p = launch_plan(dtype, hd)
+            key = (names[dtype], str(p.width), str(p.tile_k), str(p.stages),
+                   str(p.blocks_per_sm))
+            assert key in inst, key
+            seen.add(key)
+    assert seen == inst
+
+
+@pytest.mark.parametrize("hd", [0, 4, 20, 264])
+def test_plan_refuses_head_dims_it_cannot_tile(hd):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        launch_plan(torch.float32, hd)
+
+
+def test_plan_padding_at_head_dim_80():
+    """stablelm-3b's head dim 80 runs in a 128-wide bf16 tile: 37.5 % of the
+    tensor-core work multiplies zeros."""
+    plan = launch_plan(torch.bfloat16, 80)
+    assert (plan.width, plan.slabs) == (128, 2)
+    assert plan.padding_waste == pytest.approx(0.375)
+
+
+def test_alignment_refuses_what_tma_cannot_read():
+    x = torch.zeros((1, 4, 8, 33))[..., :32]        # rows of 132 bytes
+    why = alignment_problem("k", x.data_ptr(), x.shape, x.stride(), 4)
+    assert why is not None and "row stride of 132 bytes" in why
+    y = torch.zeros((1, 4, 8, 40))[..., 4:36]        # base 16 bytes in: fine
+    assert alignment_problem("q", y.data_ptr(), y.shape, y.stride(), 4) is None
+    z = torch.zeros((1, 4, 8, 40))[..., 1:33]        # base 4 bytes in
+    why = alignment_problem("q", z.data_ptr(), z.shape, z.stride(), 4)
+    assert why is not None and "base address" in why
+    h = torch.zeros((1, 3, 8, 40), dtype=torch.bfloat16)[:, :, :, :36]
+    why = alignment_problem("v", h.data_ptr(), h.shape, h.stride(), 2)
+    assert why is None                               # rows of 80 bytes: fine
+    odd = torch.zeros((2, 3, 5, 36), dtype=torch.bfloat16)[..., :32]
+    why = alignment_problem("v", odd.data_ptr(), odd.shape, odd.stride(), 2)
+    assert why is not None and "row stride of 72 bytes" in why
+    s = torch.zeros((1, 4, 8, 64))[..., ::2]
+    assert "unit-stride" in alignment_problem("q", s.data_ptr(), s.shape, s.stride(), 4)
+
+
+def test_alignment_ignores_dims_of_length_one():
+    """A dim that is never stepped may carry any stride (PyTorch leaves size-1
+    strides arbitrary)."""
+    x = torch.zeros((1, 1, 8, 32)).as_strided((1, 1, 8, 32), (3, 5, 32, 1))
+    assert alignment_problem("q", x.data_ptr(), x.shape, x.stride(), 4) is None

@@ -8,18 +8,20 @@ Phases, each of which passes or makes the script exit non-zero:
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit, the TF32 flags (set off: float32 matmuls in full float32);
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``; the
-   count of HGMMA and HMMA instructions in the flash library's SASS, which
-   must show both (wgmma for bf16, mma.sync for the 3xTF32 float32 path);
+   count of HGMMA and HMMA instructions in the flash and ssd_scan
+   libraries' SASS, which must show both in each (wgmma for bf16, mma.sync
+   for the 3xTF32 float32 path);
 3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
    decode_attention_int8) against their plain PyTorch versions on the card,
    at their paths' shapes (each path's shape listed first; flash also at
-   bf16 prefill lengths, S 1024 to 4096): error; device
+   bf16 prefill lengths, S 1024 to 4096; ssd_scan also at jamba's width
+   and over 32 chunks, with the CUDA kernels it enqueues per call): error; device
    times of kernel, plain version and, for attention, PyTorch's
    ``scaled_dot_product_attention`` as a yardstick (never used by the
    port) and, for int8 decode, the model-dtype ``decode_attention`` on the
    unquantised cache, each the median of 30 replays of a CUDA graph of the
-   calls between CUDA events; the bound (float32 flash against 3xTF32's
-   495 / 3 TFLOP/s); and the kernel's time per eager call, host dispatch
+   calls between CUDA events; the bound (float32 flash and ssd_scan against
+   3xTF32's 495 / 3 TFLOP/s); and the kernel's time per eager call, host dispatch
    included;
 4. the dense main path: faas-bench at full width served through
    ``Worker.invoke`` on the card, forced-cold under every strategy plus a
@@ -70,6 +72,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -216,19 +219,20 @@ def phase_build(ctx, torch, rt):
                 print(f"ptxas[{name}]: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
-    sass = flash_sass_counts(_build)
-    emit({"phase": "build", "flash_attention_sass": sass})
-    if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
-        fail(f"flash_attention's SASS lacks tensor-core instructions: {sass}")
+    for name in ("flash_attention", "ssd_scan"):
+        sass = sass_counts(_build, name)
+        emit({"phase": "build", f"{name}_sass": sass})
+        if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
+            fail(f"{name}'s SASS lacks tensor-core instructions: {sass}")
 
 
-def flash_sass_counts(_build):
+def sass_counts(_build, name):
     """HGMMA (wgmma: the bf16 path) and HMMA (mma.sync: the 3xTF32 path)
-    instructions in the built flash library, by the cuobjdump beside nvcc."""
+    instructions in a built library, by the cuobjdump beside nvcc."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return "not measured"
-    r = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+    r = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                        capture_output=True, text=True)
     if r.returncode != 0:
         return "not measured"
@@ -378,8 +382,11 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
     emit(case)
 
 
-def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype):
+def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, quick=False):
+    """The kernel against its plain version; ``quick``: fewer replays of the
+    plain version (a Python loop over many chunks)."""
     from repro_torch.kernels.ssd import ssd_ref, ssd_scan
+    from repro_torch.kernels.ssd.kernel import launch_plan
 
     dev = torch.device("cuda")
     # x, B, C as the mixer hands them over: strided views into one xBC
@@ -405,8 +412,10 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype):
         fail(f"ssd_scan {label}: state max abs err {err_state} outside 1e-3")
     # x was just written by the conv: L2-resident, one input set replayed
     kernel_ms = device_ms(torch, [lambda: ssd_scan(*args, chunk=chunk)])
-    plain_ms = device_ms(torch, [lambda: ssd_ref(*args, chunk=chunk)])
+    reps = dict(reps=10, per_graph=2) if quick else {}
+    plain_ms = device_ms(torch, [lambda: ssd_ref(*args, chunk=chunk)], **reps)
     c = min(chunk, l)
+    plan = launch_plan(dtype, hd, ds, c, batch=b, heads=nh, seq=l)
     # what the function needs: the causal half of C.B^T once per (batch,
     # chunk), as every head shares B and C; per (batch, head, chunk) the
     # causal half of the scores x dt.x product, and the C.state and state
@@ -416,11 +425,16 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype):
     e = x.element_size()
     nbytes = (2 * b * l * d_in * e + 2 * b * l * ds * e + 4 * b * l * nh
               + 2 * 4 * nh + 4 * b * nh * hd * ds)
-    t_ops = ops / PEAK_OPS[dname] * 1e3
+    # the float32 path runs 3xTF32 on the tensor cores
+    peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     case = {"kernel": "ssd_scan", "case": label, "dtype": dname, "b": b, "l": l,
             "nh": nh, "hd": hd, "ds": ds, "chunk": chunk, "max_abs_err": err,
-            "state_max_abs_err": err_state, "kernel_ms": kernel_ms,
+            "state_max_abs_err": err_state,
+            "cuda_kernels_per_call": plan.kernels, "ctas": plan.ctas,
+            "ops_peak": "3xTF32, 495/3 TFLOP/s" if dname == "float32" else "bf16, 989 TFLOP/s",
+            "kernel_ms": kernel_ms,
             "eager_ms": eager_ms(torch, lambda: ssd_scan(*args, chunk=chunk)),
             "plain_ms": plain_ms, "ops": ops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes),
@@ -428,6 +442,38 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype):
             "library_ms": None}
     ctx.cases.append(case)
     emit(case)
+
+
+def ssd_kernels_per_call(torch, gen):
+    """The CUDA kernels one ``ssd_scan`` call enqueues, read from a profile
+    of one call at mamba2-780m's shape; they must be the plan's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd import ssd_scan
+    from repro_torch.kernels.ssd.kernel import launch_plan
+
+    dev = torch.device("cuda")
+    b, l, nh, hd, ds, chunk = 1, 1024, 48, 64, 128, 256
+    x = torch.randn((b, l, nh, hd), generator=gen, device=dev).bfloat16()
+    B, C = (torch.randn((b, l, ds), generator=gen, device=dev).bfloat16() for _ in range(2))
+    dt = torch.rand((b, l, nh), generator=gen, device=dev) * 0.49 + 0.01
+    A = -(torch.rand((nh,), generator=gen, device=dev) * 1.5 + 0.5)
+    D = torch.randn((nh,), generator=gen, device=dev)
+    ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "ssd_" in e.name]
+    plan = launch_plan(torch.bfloat16, hd, ds, chunk, batch=b, heads=nh, seq=l)
+    emit({"kernel": "ssd_scan", "cuda_kernels_per_call": len(names) if names else
+          "not measured", "plan_kernels": plan.kernels,
+          "names": [re.search(r"ssd_\w+", n).group(0) for n in names],
+          "grids": {"chunk_state": plan.grid_state, "state_pass": plan.grid_pass,
+                    "chunk_scan": plan.grid_scan}})
+    if names and len(names) != plan.kernels:
+        fail(f"ssd_scan enqueued {len(names)} CUDA kernels, the plan {plan.kernels}")
 
 
 def decode_case(ctx, torch, gen, label, b, nh, nkv, S, hd, pos, dtype, *, quick=False):
@@ -558,6 +604,12 @@ def phase_kernels(ctx, torch, rt):
     ssd_case(ctx, torch, gen, "mamba2-780m l=1024 b=2", 2, 1024, dtype=bf16, **m2)
     for dt in (f32, bf16):  # tests/test_kernels.py's mamba2-like tile
         ssd_case(ctx, torch, gen, "b=2 l=64 nh=4 chunk=64", 2, 64, 4, 64, 128, 64, dt)
+    # jamba-v0.1-52b's mixer width (128 heads x 64, ds 16); a long sequence,
+    # 32 chunks, where the state passing walks its longest chain
+    ssd_case(ctx, torch, gen, "jamba-v0.1-52b width l=1024", 1, 1024, 128, 64, 16, 256, bf16)
+    ssd_case(ctx, torch, gen, "mamba2-780m l=8192 (32 chunks)", 1, 8192, dtype=bf16,
+             quick=True, **m2)
+    ssd_kernels_per_call(torch, gen)
 
     # the decode path's case first: stablelm-3b, b 1, cache 2048, the
     # decode phase's middle step (prefill 1024 + 32 steps)

@@ -1,4 +1,5 @@
-// Mamba-2 SSD chunked scan (forward) for NVIDIA Hopper, sm_90a.
+// Mamba-2 SSD chunked scan (forward) for NVIDIA Hopper, sm_90a: chunks in
+// parallel, products on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `ssd_scan` in
 // src/repro/kernels/ssd/kernel.py (_kernel, launched at :80).  It computes
@@ -11,48 +12,81 @@
 //   state = state exp(cs_last) + sum_j x_j^T B_j dt_j exp(cs_last - cs_j)
 //
 // with the (hd x ds) float32 state carried from chunk to chunk and written
-// out after the last one.  Only pairs j <= i are visited, so the positive
-// exponents of the upper triangle (inf, then inf * 0 = NaN) are never formed:
-// the reference masks the exponent before exp for the same reason.
+// out after the last one.  Only pairs j <= i contribute, and the exponent is
+// masked before exp, so the positive exponents of the upper triangle (inf,
+// then inf * 0 = NaN) are never formed, as in the reference.
 //
-// Layout.  The TPU grid (batch, head, chunk) runs its chunk axis in order
-// and keeps the state in VMEM.  Here one block of 256 threads owns one
-// (batch, head) and loops over the chunks itself; the state lives in
-// registers (8 x 4 values a thread, hd <= 64, ds <= 128) and is mirrored to
-// shared memory once per chunk for the inter-chunk term.  A chunk is cut into
-// tiles of 64 rows: for each row tile i, the C tile is staged once, and for
-// each row tile j <= i the B and x tiles are staged (float, widened from bf16
-// on load); P = (C_i B_j^T) * decay * dt on the causal part goes through
-// shared memory, then y_i += P x_j.  The last row tile visits every j tile,
-// and the state update is taken there from the staged B and x.  Shared
-// memory at c 256, hd 64, ds 128: state 33 KB + C, B 66 KB + x 16 KB +
-// P 17 KB + dt, cs, w 3 KB = 135 KB of the 227 KB a block may have.
+// Design (Mamba-2's own GPU decomposition, arXiv:2405.21060 §6): chunks run
+// in parallel and only the (hd x ds) states cross chunks.  One call enqueues
+// three kernels on PyTorch's current stream (float32: four, see 0):
+//
+// 0. float32 only: ssd_chunk_cb, grid (batch x chunks, tile pairs j <= i):
+//    C_i . B_j^T once per chunk, as the heads share B and C.  In 3xTF32 the
+//    operand splits make that product the float32 scan's largest cost when
+//    it is repeated per head.
+// 1. ssd_chunk_state, grid (batch x chunks, heads, float32: ds / 64),
+//    128 threads: the prefix sum cs of the chunk, w_j = dt_j exp(cs_last -
+//    cs_j) and v_j = dt_j exp(cs_e - cs_j), e the last row of j's 64-row
+//    tile (cs and v written out for 3), and the chunk's own state
+//    (x o w)^T . B, a (hd x c) . (c x ds) product over 64-row tiles of x
+//    and B in a cp.async ring (4 stages bf16, 2 float32).
+// 2. ssd_state_pass, grid (hd ds / 1024, heads, batch), 4 elements a
+//    thread: S_in[k] = S_in[k-1] exp(cs_last[k-1]) + state[k-1] in order over
+//    the chunks, the same multiply-then-add as the reference, with the loads
+//    of 8 chunks in flight together; it writes the final state and S_in,
+//    for bf16 already split into the hi and lo planes the scan copies.
+// 3. ssd_chunk_scan, grid (batch x chunks, heads, row tiles of 64), longest
+//    causal row tiles launched first: y_i = exp(cs_i) (C_i . S_in^T), then
+//    for each j tile <= i: S = C_i . B_j^T, P = S o decay o dt_j masked in
+//    registers, y_i += P . x_j; then + D x_i.  On the diagonal tile the
+//    decay is exp(cs_i - cs_j); below it, exp(cs_i - cs_e) v_j, two factors
+//    that are each <= 1 and one exp per row instead of one per pair.  The
+//    entering state and the second stage of B_j, x_j share one region.  bf16
+//    recomputes C.B^T per head: one wgmma a k-step, ~0.8 GFLOP extra at
+//    mamba2, about 1 us, less than a fourth kernel's launch and bytes.  bf16
+//    is compiled for three CTAs an SM, float32 for two.
+//
+// Tiles are 64 rows, staged in shared memory in the 128-byte swizzle that
+// TMA writes (16-byte chunk index XOR row % 8, slabs of 128 bytes across the
+// width), here filled by 16-byte cp.async with zero fill for rows past the
+// chunk and columns past hd / ds.  hd is padded to 64, ds to 64 or 128.
+// No mbarriers: a cp.async group cannot wait forever, so nothing can hang.
+//
+// Arithmetic.  bfloat16: x, B and C are exact in bf16, products accumulate
+// in float32.  C . B^T is one `wgmma` (both K-major, m64n64k16).  The f32
+// operands that meet a bf16 product are split into hi + lo bf16 parts, two
+// products each (the other operand is exact): x o w in the state product
+// and P in P . x (A from registers, B and x read MN-major), and S_in in
+// C . S_in^T (hi and lo tiles).  Rounding any one of them to a single bf16
+// misses the tolerances (tests/test_torch_ssd.py).  float32: 3xTF32 on
+// mma.sync.m16n8k8 (hi.hi + hi.lo + lo.hi) with hi and lo rounded to
+// nearest, and each 8-deep step summed from zero and added in float32:
+// truncated splits, or the tensor core's own accumulation (it rounds
+// toward zero) over a whole K loop, reach the float32 tolerance of 2e-5 at
+// mamba2 widths, where |C.B| ~ 40 at ds 128.
 //
 // The prefix sum is one thread's sequential float32 loop over the chunk,
 // multiply then add, each rounded (no FMA), in the order of PyTorch's CUDA
-// cumsum along a non-innermost dim (one sequential loop per column): the
-// decays are differences of cs, which reaches about -80 within a chunk, so
-// a different summation order would move them by an ulp of 80 (7.6e-6) and
-// use up the float32 tolerance against the plain version.
+// cumsum along a non-innermost dim: the decays are differences of cs, which
+// reaches about -80 within a chunk, so a different summation order would
+// move them by an ulp of 80 (7.6e-6) and use up the float32 tolerance.
 //
 // What bounds it on the H100: at mamba2-780m (b 1, l 1024, nh 48, hd 64,
-// ds 128, c 256) the function needs 2.45 GFLOP: the causal half of C.B^T,
-// c(c+1) ds, once per (batch, chunk), since the heads share B and C, and
-// c(c+1) hd + 4 c hd ds per (batch, head, chunk).  The bytes are 15 MB (x, y
-// in bf16, B, C, dt, the state).  That is 2.5 us of bf16 tensor-core time
-// and 4.4 us of HBM time: bound by bytes.  This first version is the
-// simple, exact one: float32 FMAs on the CUDA cores from shared memory with
-// 4 x 4 register tiles, no wgmma, no TMA, and one block per (batch, head),
-// i.e. 48 blocks for 132 SMs at batch 1; C.B^T is recomputed for every head
-// though B and C are shared by all heads (4.0 GFLOP done for the 2.45
-// needed).  It will sit far above its bound; the chunk-parallel split
-// (state pieces per chunk, then a short pass over the states) and wgmma
-// products are later work, and its times are recorded in PERF.md.
+// ds 128, c 256) the function needs 2.45 GFLOP (the causal half of C.B^T
+// once per (batch, chunk), the scores x dt.x, C.state and state products
+// per head) and 15 MB (x, y in bf16, B, C, dt, the state): 2.5 us of bf16
+// tensor-core time against 4.4 us of HBM time, so bound by bytes; in
+// float32 (3xTF32, 495 / 3 TFLOP/s) bound by operations, 14.8 us.  What
+// holds it above that is latency along each CTA's chain of dependent
+// steps (copies, products, the masked decay), not throughput.
 //
 // Inputs are read through strides: x, B and C are views into the mixer's
-// xBC activation (row stride d_inner + 2 ds), with unit stride in their last
-// dim.  y and the state are contiguous.  The launcher takes PyTorch's
-// current stream, never synchronises, allocates nothing, and returns
+// xBC activation (row stride d_inner + 2 ds), with unit stride in their
+// last dim, 16-byte aligned bases and strides; hd and ds multiples of 8.  y
+// and the state are contiguous.  The wrapper allocates the scratch (cs, v,
+// the chunk states, the entering states, float32's C.B^T tiles) and passes
+// its launch plan; the launcher refuses a plan that differs from its
+// instantiations, never synchronises, allocates nothing, and returns
 // cudaGetLastError() for the wrapper.
 
 #include <cuda_bf16.h>
@@ -61,268 +95,820 @@
 
 namespace {
 
-constexpr int kT = 64;           // rows per tile of a chunk (i and j)
-constexpr int kThreads = 256;    // 16 x 16 for P and y, 8 x 32 for the state
-constexpr int kMaxHd = 64;
-constexpr int kMaxDs = 128;
+constexpr int kT = 64;             // rows of a tile: chunk rows, or state rows (hd)
+constexpr int kHdp = 64;           // head dim padded
+constexpr int kThreads = 128;      // one warpgroup
+constexpr int kSlab = kT * 128;    // bytes of one 128-byte-wide slab of a tile
 constexpr int kMaxChunk = 4096;
-constexpr int kStRows = kMaxHd / 8;   // state rows a thread owns
-constexpr int kStCols = kMaxDs / 32;  // state columns a thread owns
+constexpr int kPassThreads = 256;
+constexpr int kErrPlan = 10003;    // plan differs from every instantiation
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+template <typename T, int DSP>
+struct Tiles {
+  static constexpr int kW = 128 / (int)sizeof(T);      // elements in a slab row
+  static constexpr int kXBytes = kHdp / kW * kSlab;    // x tile: 64 rows x 64
+  static constexpr int kBBytes = DSP / kW * kSlab;     // B, C, state: 64 rows x DSP
+  // chunk state: x and B tiles in a ring of kStages, then dt (becoming w)
+  // and cs of the chunk.  A float32 CTA takes 64 of the ds columns (grid z
+  // splits ds), a bf16 one all DSP.
+  static constexpr int kStages = sizeof(T) == 2 ? 4 : 2;
+  static constexpr int kStateW = sizeof(T) == 4 ? 64 : DSP;
+  static constexpr int kStateB = kStateW / kW * kSlab;
+  static constexpr int kStateTiles = kStages * (kXBytes + kStateB);
+  static constexpr int state_smem(int c) { return kStateTiles + 8 * c + 1024; }
+  // chunk scan: C_i; stage 0 (B_j, x_j); a region that first holds the
+  // entering state (bf16: hi and lo tiles, float32: one), then stage 1;
+  // cs_i, and cs_j, dt_j and v_j in two stages
+  // (float32 takes C_i . B_j^T from ssd_chunk_cb: no B_j tile)
+  static constexpr int kSTiles = sizeof(T) == 2 ? 2 : 1;
+  static constexpr bool kCB = sizeof(T) == 4;
+  static constexpr int kStageB = kCB ? 0 : kBBytes;
+  static constexpr int kStage = kStageB + kXBytes;
+  static constexpr int kR1 = kSTiles * kBBytes > kStage ? kSTiles * kBBytes : kStage;
+  static constexpr int kScan = kBBytes + kStage + kR1 + 7 * kT * 4 + 1024;
+  // float32 C.B^T: a C and a B tile
+  static constexpr int kCBSmem = 2 * kBBytes + 1024;
+};
 
-// element strides: x (batch, seq, head), dt (batch, seq, head), B and C
-// (batch, seq); the last dim of x, B and C has stride 1
-struct Strides {
+struct Args {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* Bm;
+  const void* Cm;
+  const float* D;
+  void* y;
+  float* state;    // (b, nh, hd, ds) final state
+  float* cs;       // (b, nc, nh, c) prefix sums
+  float* v;        // (b, nc, nh, c): dt_j exp(cs_e - cs_j), e the last row of j's tile
+  float* states;   // (b, nc, nh, hd, ds) chunk states
+  void* sin;       // the state entering each chunk: float32 (b, nc, nh, hd, ds);
+                   // bf16 hi and lo planes (b, nc, nh, 2, hd, ds)
+  float* cbt;      // float32: C_i . B_j^T per (b, chunk, tile pair j <= i), 64 x 64
+                   // in the accumulator's register order
+  int L, nh, hd, ds, c, nc, nt, npairs;
+  // element strides: x (batch, seq, head), dt (batch, seq, head), B and C
+  // (batch, seq); the last dim of x, B and C has stride 1
   int64_t xb, xl, xh, tb, tl, th, bb, bl, cb, cl;
 };
 
-size_t smem_floats(int hd, int ds, int c) {
-  const size_t ldc = ds + 1;
-  return hd * ldc + 2 * kT * ldc + (size_t)kT * hd + (size_t)kT * (kT + 1) +
-         3 * (size_t)c;
+// ------------------------------------------------------------ PTX helpers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !ok (nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// orders this thread's shared-memory writes before wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// wgmma shared-memory descriptor for a 128-byte-swizzled tile (as in the
+// flash kernel): start address, leading and stride byte offsets 1024 (the
+// next 8-row group), layout B128.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Ties the registers to this point of the program, so that the compiler
+// neither reads them before an asynchronous wgmma has written them nor
+// writes them after it was issued.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64]^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs), B in
+// shared memory MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8], tf32 inputs, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x rounded to the nearest tf32 (ties away from zero; low 13 bits zero)
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo + O(2^-24 x), hi and lo tf32 rounded to nearest
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - __uint_as_float(hi));
+}
+
+// c[4j..4j+3] += a . b_j in 3xTF32 for N column blocks j, the small cross
+// terms first, each pass over all N blocks (no product waits on the one
+// before it).  The tensor core adds into its accumulator rounding toward
+// zero; carried over a whole K loop into sums of ~40 (C.B^T at ds 128)
+// that bias alone misses 2e-5, so each 8-deep step starts from zero and is
+// added to c in float32, rounded to nearest.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi,
+                                           const uint32_t* alo,
+                                           const uint32_t (*bhi)[2],
+                                           const uint32_t (*blo)[2]) {
+  float d[4 * N];
+#pragma unroll
+  for (int i = 0; i < 4 * N; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d + 4 * j, alo, bhi[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d + 4 * j, ahi, blo[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(d + 4 * j, ahi, bhi[j]);
+#pragma unroll
+  for (int i = 0; i < 4 * N; ++i) c[i] += d[i];
+}
+
+// (a, b) as bf16 pairs hi and lo with a = hi.x + lo.x + O(2^-17 a)
+__device__ __forceinline__ void pack_split(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// byte offset of element (r, e) in a 64-row tile stored as 128-byte slabs
+// across its width, each slab 128-byte-swizzled (TMA's SWIZZLE_128B layout)
+template <typename T>
+__device__ __forceinline__ uint32_t swz(int r, int e) {
+  constexpr int W = 128 / (int)sizeof(T);
+  const int b = (e % W) * (int)sizeof(T);
+  return (uint32_t)((e / W) * kSlab + r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bm,
-                const T* __restrict__ Cm, const float* __restrict__ D,
-                T* __restrict__ y, float* __restrict__ state_out, int L,
-                int nh, int hd, int ds, int c, Strides st) {
-  extern __shared__ float smem[];
-  const int ldc = ds + 1;            // odd row stride: no bank conflicts
-  float* sS = smem;                  // hd x ldc: the state entering the chunk
-  float* sC = sS + hd * ldc;         // kT x ldc: C rows of tile i
-  float* sB = sC + kT * ldc;         // kT x ldc: B rows of tile j
-  float* sX = sB + kT * ldc;         // kT x hd:  x rows of tile j
-  float* sP = sX + kT * hd;          // kT x (kT + 1): the masked products
-  float* sDt = sP + kT * (kT + 1);   // c: dt
-  float* sCs = sDt + c;              // c: inclusive prefix sum of dt * A
-  float* sW = sCs + c;               // c: dt_j exp(cs_last - cs_j)
+__device__ __forceinline__ float ld_tile(const unsigned char* tile, int r, int e) {
+  return to_f(*reinterpret_cast<const T*>(tile + swz<T>(r, e)));
+}
+
+// rows x cols of a row-major global matrix (row stride ld elements, unit
+// column stride) into a 64-row swizzled tile WIDTH elements wide, by 16-byte
+// cp.async; rows >= nrows and columns >= ncols are zero-filled.  A thread
+// keeps one 16-byte column and steps down the rows.
+template <typename T, int WIDTH>
+__device__ __forceinline__ void load_tile(uint32_t tile, const T* src, int64_t ld,
+                                          int nrows, int ncols, int tid) {
+  constexpr int kPer = 16 / (int)sizeof(T);   // elements per copy
+  constexpr int kQ = WIDTH / kPer;             // copies per row
+  constexpr int kStep = kThreads / kQ;         // rows per pass
+  static_assert(kThreads % kQ == 0 && kT % kStep == 0, "tile shape");
+  const int e = (tid % kQ) * kPer, r0 = tid / kQ;
+  const bool col_ok = e < ncols;
+  const T* sp = src + r0 * ld + e;
+#pragma unroll
+  for (int k = 0; k < kT / kStep; ++k) {
+    const int r = r0 + k * kStep;
+    const bool ok = col_ok && r < nrows;
+    cp_async16(tile + swz<T>(r, e), ok ? sp : src, ok);
+    sp += kStep * ld;
+  }
+}
+
+// float32: acc[32] = A . B^T over the first kdim (<= DSP) columns, A rows
+// r0, r0 + 8 of one 64-row tile, B rows 0..63 of another (8 column blocks),
+// in 3xTF32.
+template <int DSP>
+__device__ __forceinline__ void mma_abt_f32(float* acc, const unsigned char* a,
+                                            const unsigned char* b, int kdim, int r0,
+                                            int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DSP / 8; ++kk) {
+    if (8 * kk >= kdim) break;
+    const int d = 8 * kk + t;
+    uint32_t ahi[4], alo[4];
+    split_tf32(ld_tile<float>(a, r0, d), ahi[0], alo[0]);
+    split_tf32(ld_tile<float>(a, r0 + 8, d), ahi[1], alo[1]);
+    split_tf32(ld_tile<float>(a, r0, d + 4), ahi[2], alo[2]);
+    split_tf32(ld_tile<float>(a, r0 + 8, d + 4), ahi[3], alo[3]);
+    uint32_t bhi[8][2], blo[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      split_tf32(ld_tile<float>(b, 8 * j + g, d), bhi[j][0], blo[j][0]);
+      split_tf32(ld_tile<float>(b, 8 * j + g, d + 4), bhi[j][1], blo[j][1]);
+    }
+    mma_3xtf32<8>(acc, ahi, alo, bhi, blo);
+  }
+}
+
+// bfloat16: acc[32] (+)= A . B^T over all DSP columns (zero past ds), both
+// 64-row K-major swizzled tiles in shared memory.  No branch between the
+// products: one would make the compiler wait for each before the next.
+template <int DSP>
+__device__ __forceinline__ void wgmma_abt(float* acc, uint32_t a, uint32_t b,
+                                          bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < DSP / 16; ++kk) {  // the padding past kdim is zeros
+    const uint32_t off = (kk >> 2) * kSlab + ((kk & 3) << 5);  // 16 bf16 = 32 bytes
+    wgmma_ss(acc, smem_desc(a + off), smem_desc(b + off), accumulate || kk > 0);
+  }
+}
+
+// Register layout of a 64 x 64 float32 result (the m16n8 accumulator, which
+// is also wgmma's m64nN layout for warp w): thread (warp w, lane = 4 g + t)
+// holds, for each 8-column block j, entries 4j + {0, 1} of row 16 w + g at
+// columns 8j + 2t + {0, 1}, and entries 4j + {2, 3} of row 16 w + g + 8.
+
+// ------------------------------------------------------- 1. chunk state
+
+template <typename T, int DSP>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_state(const Args p) {
+  using L = Tiles<T, DSP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  float* sW = reinterpret_cast<float*>(smem + L::kStateTiles);  // dt, then w
+  float* sCs = sW + p.c;
 
   const int tid = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const float a = A[h], dcoef = D[h];
-  const int ty = tid >> 4, tx = tid & 15;  // rows ty + 16 r, cols tx + 16 q
-  const int py = tid >> 5, sx = tid & 31;  // state rows py + 8 r, cols sx + 32 q
+  const int bk = blockIdx.x, h = blockIdx.y;
+  const int b = bk / p.nc, k = bk - b * p.nc;
+  const int c = p.c;
+  const int64_t t0 = (int64_t)k * c;
+  const T* xp = static_cast<const T*>(p.x) + b * p.xb + t0 * p.xl + h * p.xh;
+  constexpr int BW = L::kStateW;                 // the ds columns this CTA takes
+  const int s0 = (int)blockIdx.z * BW;           // from this one
+  const T* bp = static_cast<const T*>(p.Bm) + b * p.bb + t0 * p.bl + s0;
+  const float* dtp = p.dt + b * p.tb + t0 * p.tl + h * p.th;
+  const int ntj = (c + kT - 1) / kT;
+  constexpr int S = L::kStages;
 
-  const T* xp = x + b * st.xb + h * st.xh;
-  const float* dtp = dt + b * st.tb + h * st.th;
-  const T* bp = Bm + b * st.bb;
-  const T* cp = Cm + b * st.cb;
-  const int64_t yl = (int64_t)nh * hd;     // y is contiguous (b, l, nh, hd)
-  T* yp = y + (int64_t)b * L * yl + (int64_t)h * hd;
-
-  float reg[kStRows][kStCols];
-#pragma unroll
-  for (int r = 0; r < kStRows; ++r)
-#pragma unroll
-    for (int q = 0; q < kStCols; ++q) reg[r][q] = 0.f;
-  for (int i = tid; i < hd * ldc; i += kThreads) sS[i] = 0.f;
-
-  const int nt = (c + kT - 1) / kT;
-  for (int t0 = 0; t0 < L; t0 += c) {
-    __syncthreads();  // the previous chunk's reads of sDt / sCs / sW are done
-    for (int i = tid; i < c; i += kThreads) sDt[i] = dtp[(int64_t)(t0 + i) * st.tl];
-    __syncthreads();
-    if (tid == 0) {
-      float run = 0.f;
-      for (int i = 0; i < c; ++i) {
-        run = __fadd_rn(run, __fmul_rn(sDt[i], a));
-        sCs[i] = run;
-      }
+  auto stage = [&](int jt) {  // one cp.async group, empty past the last tile
+    if (jt < ntj) {
+      const int s = jt % S, j0 = jt * kT, n = min(kT, c - j0);
+      load_tile<T, kHdp>(base + s * L::kXBytes, xp + j0 * p.xl, p.xl, n, p.hd, tid);
+      load_tile<T, BW>(base + S * L::kXBytes + s * L::kStateB, bp + j0 * p.bl, p.bl, n,
+                       p.ds - s0, tid);
     }
-    __syncthreads();
-    const float total = sCs[c - 1];
-    for (int i = tid; i < c; i += kThreads) sW[i] = sDt[i] * expf(total - sCs[i]);
-    const float carry = expf(total);
+    cp_async_commit();
+  };
+  // dt of the chunk, in a cp.async group ahead of the tiles'
+  for (int i = tid; i < c; i += kThreads) cp_async4(smem_u32(sW + i), dtp + i * p.tl, true);
+  cp_async_commit();
+  for (int jt = 0; jt < S - 1; ++jt) stage(jt);
+  cp_async_wait<S - 1>();
+  __syncthreads();
+  // dt_i A, each rounded, in parallel; then one thread's sequential sum,
+  // 32 values at a time through registers
+  const float a = p.A[h];
+  for (int i = tid; i < c; i += kThreads) sCs[i] = __fmul_rn(sW[i], a);
+  __syncthreads();
+  if (tid == 0) {
+    float run = 0.f;
+    int i = 0;
+    for (; i + 32 <= c; i += 32) {
+      float d[32];
 #pragma unroll
-    for (int r = 0; r < kStRows; ++r)
+      for (int q = 0; q < 32; ++q) d[q] = sCs[i + q];
 #pragma unroll
-      for (int q = 0; q < kStCols; ++q) reg[r][q] *= carry;
-
-    for (int it = 0; it < nt; ++it) {
-      const int r0 = it * kT, ni = min(kT, c - r0);
-      __syncthreads();  // sW is written; the previous tile's sC reads are done
-      for (int i = tid; i < kT * ds; i += kThreads) {
-        const int r = i / ds, s = i - r * ds;
-        sC[r * ldc + s] = r < ni ? load_f(cp + (int64_t)(t0 + r0 + r) * st.cl + s) : 0.f;
-      }
-      float acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * kT, nj = min(kT, c - j0);
-        __syncthreads();  // the previous j tile's sB / sX / sP are consumed
-        for (int i = tid; i < kT * ds; i += kThreads) {
-          const int r = i / ds, s = i - r * ds;
-          sB[r * ldc + s] = r < nj ? load_f(bp + (int64_t)(t0 + j0 + r) * st.bl + s) : 0.f;
-        }
-        for (int i = tid; i < kT * hd; i += kThreads) {
-          const int r = i / hd, p = i - r * hd;
-          sX[i] = r < nj ? load_f(xp + (int64_t)(t0 + j0 + r) * st.xl + p) : 0.f;
-        }
-        __syncthreads();
-
-        // P = (C_i . B_j) exp(cs_i - cs_j) dt_j for j <= i, else 0
-        {
-          float s4[4][4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) s4[r][q] = 0.f;
-          for (int k = 0; k < ds; ++k) {
-            float cv[4], bv[4];
-#pragma unroll
-            for (int r = 0; r < 4; ++r) cv[r] = sC[(ty + 16 * r) * ldc + k];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) bv[q] = sB[(tx + 16 * q) * ldc + k];
-#pragma unroll
-            for (int r = 0; r < 4; ++r)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) s4[r][q] = fmaf(cv[r], bv[q], s4[r][q]);
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int li = ty + 16 * r, lj = tx + 16 * q;
-              const int i = r0 + li, j = j0 + lj;
-              float pv = 0.f;
-              if (li < ni && lj < nj && j <= i)
-                pv = s4[r][q] * expf(sCs[i] - sCs[j]) * sDt[j];
-              sP[li * (kT + 1) + lj] = pv;
-            }
-        }
-
-        // the last row tile visits every j tile: take the state update here
-        if (it == nt - 1) {
-          for (int jj = 0; jj < nj; ++jj) {
-            const float w = sW[j0 + jj];
-            float bw[kStCols];
-#pragma unroll
-            for (int q = 0; q < kStCols; ++q) {
-              const int s = sx + 32 * q;
-              bw[q] = s < ds ? sB[jj * ldc + s] * w : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < kStRows; ++r) {
-              const int p = py + 8 * r;
-              const float xv = p < hd ? sX[jj * hd + p] : 0.f;
-#pragma unroll
-              for (int q = 0; q < kStCols; ++q) reg[r][q] = fmaf(xv, bw[q], reg[r][q]);
-            }
-          }
-        }
-        __syncthreads();
-
-        // y_i += P x_j
-        for (int jj = 0; jj < nj; ++jj) {
-          float pv[4], xv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) pv[r] = sP[(ty + 16 * r) * (kT + 1) + jj];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int p = tx + 16 * q;
-            xv[q] = p < hd ? sX[jj * hd + p] : 0.f;
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(pv[r], xv[q], acc[r][q]);
-        }
-      }
-
-      // inter-chunk term exp(cs_i) (C_i . state), then D x_i; write y
-      float in4[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) in4[r][q] = 0.f;
-      for (int k = 0; k < ds; ++k) {
-        float cv[4], sv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = sC[(ty + 16 * r) * ldc + k];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = tx + 16 * q;
-          sv[q] = p < hd ? sS[p * ldc + k] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) in4[r][q] = fmaf(cv[r], sv[q], in4[r][q]);
+      for (int q = 0; q < 32; ++q) {
+        run = __fadd_rn(run, d[q]);
+        d[q] = run;
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int li = ty + 16 * r;
-        if (li >= ni) continue;
-        const int i = r0 + li;
-        const float e = expf(sCs[i]);
-        const int64_t row = t0 + i;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = tx + 16 * q;
-          if (p >= hd) continue;
-          float v = acc[r][q] + in4[r][q] * e;
-          v += dcoef * load_f(xp + row * st.xl + p);
-          store_f(yp + row * yl + p, v);
-        }
-      }
+      for (int q = 0; q < 32; ++q) sCs[i + q] = d[q];
     }
-
-    __syncthreads();  // every read of the entering state is done
-#pragma unroll
-    for (int r = 0; r < kStRows; ++r) {
-      const int p = py + 8 * r;
-#pragma unroll
-      for (int q = 0; q < kStCols; ++q) {
-        const int s = sx + 32 * q;
-        if (p < hd && s < ds) sS[p * ldc + s] = reg[r][q];
-      }
+    for (; i < c; ++i) {
+      run = __fadd_rn(run, sCs[i]);
+      sCs[i] = run;
     }
   }
+  __syncthreads();
+  const float total = sCs[c - 1];
+  float* csp = p.cs + ((int64_t)bk * p.nh + h) * c;
+  float* vp = p.v + ((int64_t)bk * p.nh + h) * c;
+  for (int i = tid; i < c; i += kThreads) {
+    if (blockIdx.z == 0) {
+      csp[i] = sCs[i];
+      const float ce = sCs[min(i | (kT - 1), c - 1)];  // the last row of i's tile
+      vp[i] = expf(ce - sCs[i]) * sW[i];
+    }
+    sW[i] = sW[i] * expf(total - sCs[i]);  // w_j = dt_j exp(total - cs_j)
+  }
+  // (the __syncthreads in the loop orders these writes before their reads)
 
-  float* so = state_out + ((int64_t)b * nh + h) * hd * ds;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int p0 = 16 * warp + g;  // state rows p0 and p0 + 8 (the head dim)
+  constexpr int NA = BW / 2;     // BW / 8 column blocks x 4
+  float acc[NA];
 #pragma unroll
-  for (int r = 0; r < kStRows; ++r) {
-    const int p = py + 8 * r;
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+
+  for (int jt = 0; jt < ntj; ++jt) {
+    stage(jt + S - 1);
+    cp_async_wait<S - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int s = jt % S, j0 = jt * kT;
+    const unsigned char* xs = smem + s * L::kXBytes;
+    const uint32_t bs = base + S * L::kXBytes + s * L::kStateB;
+    auto wv = [&](int jj) { return j0 + jj < c ? sW[j0 + jj] : 0.f; };
+    if constexpr (sizeof(T) == 2) {
+      // A = (x o w)^T (rows: head dim, columns: chunk rows), split hi + lo
+      uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
-    for (int q = 0; q < kStCols; ++q) {
-      const int s = sx + 32 * q;
-      if (p < hd && s < ds) so[p * ds + s] = reg[r][q];
+      for (int kk = 0; kk < 4; ++kk) {
+        const int ja = 16 * kk + 2 * t;
+        const float w0 = wv(ja), w1 = wv(ja + 1), w8 = wv(ja + 8), w9 = wv(ja + 9);
+        pack_split(ld_tile<T>(xs, ja, p0) * w0, ld_tile<T>(xs, ja + 1, p0) * w1,
+                   ahi[kk][0], alo[kk][0]);
+        pack_split(ld_tile<T>(xs, ja, p0 + 8) * w0, ld_tile<T>(xs, ja + 1, p0 + 8) * w1,
+                   ahi[kk][1], alo[kk][1]);
+        pack_split(ld_tile<T>(xs, ja + 8, p0) * w8, ld_tile<T>(xs, ja + 9, p0) * w9,
+                   ahi[kk][2], alo[kk][2]);
+        pack_split(ld_tile<T>(xs, ja + 8, p0 + 8) * w8,
+                   ld_tile<T>(xs, ja + 9, p0 + 8) * w9, ahi[kk][3], alo[kk][3]);
+      }
+      fence_regs<NA>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int s2 = 0; s2 < BW / 64; ++s2) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // 16 chunk rows = two 8-row groups of 1024 bytes; B read MN-major
+          const uint64_t db = smem_desc(bs + s2 * kSlab + kk * 2048);
+          wgmma_rs(acc + 32 * s2, ahi[kk], db);
+          wgmma_rs(acc + 32 * s2, alo[kk], db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<NA>(acc);
+    } else {
+      const unsigned char* bt = smem + (bs - base);
+#pragma unroll
+      for (int ks = 0; ks < kT / 8; ++ks) {
+        if (j0 + 8 * ks >= c) break;
+        const int ja = 8 * ks + t;
+        const float w0 = wv(ja), w4 = wv(ja + 4);
+        uint32_t ahi[4], alo[4];
+        split_tf32(ld_tile<float>(xs, ja, p0) * w0, ahi[0], alo[0]);
+        split_tf32(ld_tile<float>(xs, ja, p0 + 8) * w0, ahi[1], alo[1]);
+        split_tf32(ld_tile<float>(xs, ja + 4, p0) * w4, ahi[2], alo[2]);
+        split_tf32(ld_tile<float>(xs, ja + 4, p0 + 8) * w4, ahi[3], alo[3]);
+#pragma unroll
+        for (int n0 = 0; n0 < BW / 8; n0 += 8) {
+          if (s0 + 8 * n0 >= p.ds) break;
+          uint32_t bhi[8][2], blo[8][2];
+#pragma unroll
+          for (int jb = 0; jb < 8; ++jb) {
+            const int sc = 8 * (n0 + jb) + g;
+            split_tf32(ld_tile<float>(bt, ja, sc), bhi[jb][0], blo[jb][0]);
+            split_tf32(ld_tile<float>(bt, ja + 4, sc), bhi[jb][1], blo[jb][1]);
+          }
+          mma_3xtf32<8>(acc + 4 * n0, ahi, alo, bhi, blo);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is loaded again
+  }
+
+  float* sp = p.states + ((int64_t)bk * p.nh + h) * p.hd * p.ds;
+#pragma unroll
+  for (int nb = 0; nb < BW / 8; ++nb) {
+    const int col = s0 + 8 * nb + 2 * t;
+    if (col < p.ds) {
+      if (p0 < p.hd) store2(sp + p0 * p.ds + col, acc[4 * nb], acc[4 * nb + 1]);
+      if (p0 + 8 < p.hd)
+        store2(sp + (p0 + 8) * p.ds + col, acc[4 * nb + 2], acc[4 * nb + 3]);
     }
   }
 }
 
+// ------------------------------------------------------- 2. state passing
+
+// One thread per 4 state elements walks the chunks in order; the chunk
+// states and decays of kBatch chunks are loaded together, so that a long
+// sequence waits on one load latency per batch, not per chunk.
 template <typename T>
-int launch(const void* x, const void* dt, const void* A, const void* Bm,
-           const void* Cm, const void* D, void* y, void* state, int batch,
-           int L, int nh, int hd, int ds, int c, const Strides& st,
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass(const Args p) {
+  constexpr int kBatch = 8;
+  const int n = p.hd * p.ds;  // a multiple of 64
+  const int idx = 4 * (blockIdx.x * kPassThreads + threadIdx.x);
+  if (idx >= n) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float run[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < p.nc; k0 += kBatch) {
+    float4 v[kBatch];
+    float carry[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (k0 + q < p.nc) {
+        const int64_t bkh = ((int64_t)b * p.nc + k0 + q) * p.nh + h;
+        v[q] = *reinterpret_cast<const float4*>(p.states + bkh * n + idx);
+        carry[q] = expf(p.cs[bkh * p.c + p.c - 1]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      if (k0 + q < p.nc) {
+        const int64_t bkh = ((int64_t)b * p.nc + k0 + q) * p.nh + h;
+        if constexpr (sizeof(T) == 4) {
+          *reinterpret_cast<float4*>(static_cast<float*>(p.sin) + bkh * n + idx) =
+              make_float4(run[0], run[1], run[2], run[3]);
+        } else {  // hi and lo planes: the bf16 operands of C . S_in^T
+          uint32_t h0, l0, h1, l1;
+          pack_split(run[0], run[1], h0, l0);
+          pack_split(run[2], run[3], h1, l1);
+          T* sp = static_cast<T*>(p.sin) + bkh * 2 * n + idx;
+          *reinterpret_cast<uint2*>(sp) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(sp + n) = make_uint2(l0, l1);
+        }
+        const float vq[4] = {v[q].x, v[q].y, v[q].z, v[q].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) run[e] = __fadd_rn(__fmul_rn(run[e], carry[q]), vq[e]);
+      }
+    }
+  }
+  *reinterpret_cast<float4*>(p.state + ((int64_t)b * p.nh + h) * n + idx) =
+      make_float4(run[0], run[1], run[2], run[3]);
+}
+
+// ------------------------------------------------------- 3. chunk scan
+
+// bf16: at most 170 registers, so that three CTAs share an SM (76 KB of
+// shared memory each at ds 128); float32: two
+template <typename T, int DSP>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 2)
+ssd_chunk_scan(const Args p) {
+  using L = Tiles<T, DSP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sC = base;                          // C_i
+  const uint32_t sS = base + L::kBBytes + L::kStage;  // entering state, then stage 1
+  // stage s: B_j (bf16) at sB(s), x_j at sB(s) + kStageB
+  auto sB = [&](int s) { return s ? sS : base + L::kBBytes; };
+  float* csI = reinterpret_cast<float*>(smem + (sS - base) + L::kR1);
+  float* csJ = csI + kT;       // two stages
+  float* dtJ = csJ + 2 * kT;   // two stages
+  float* vJ = dtJ + 2 * kT;    // two stages
+
+  const int tid = threadIdx.x;
+  const int bk = blockIdx.x, h = blockIdx.y;
+  const int b = bk / p.nc, k = bk - b * p.nc;
+  const int c = p.c;
+  const int64_t t0 = (int64_t)k * c;
+  const T* xp = static_cast<const T*>(p.x) + b * p.xb + t0 * p.xl + h * p.xh;
+  const T* bp = static_cast<const T*>(p.Bm) + b * p.bb + t0 * p.bl;
+  const T* cp = static_cast<const T*>(p.Cm) + b * p.cb + t0 * p.cl;
+  const float* dtp = p.dt + b * p.tb + t0 * p.tl + h * p.th;
+  const int64_t bkh = (int64_t)bk * p.nh + h;
+  const float* csp = p.cs + bkh * c;
+  const float* vp = p.v + bkh * c;
+  const bool carry = k > 0;  // the first chunk enters with a zero state
+
+  const int it = p.nt - 1 - (int)blockIdx.z;  // longest causal row tiles first
+  const int i0 = it * kT, ni = min(kT, c - i0);
+
+  // group 0: C_i, cs_i and (float32) the entering state
+  load_tile<T, DSP>(sC, cp + i0 * p.cl, p.cl, ni, p.ds, tid);
+  if (tid < kT) cp_async4(smem_u32(csI + tid), tid < ni ? csp + i0 + tid : csp, tid < ni);
+  if (carry) {
+    const int64_t n = (int64_t)p.hd * p.ds;
+    const T* sinp = static_cast<const T*>(p.sin) + bkh * L::kSTiles * n;
+    load_tile<T, DSP>(sS, sinp, p.ds, p.hd, p.ds, tid);
+    if constexpr (L::kSTiles == 2)
+      load_tile<T, DSP>(sS + L::kBBytes, sinp + n, p.ds, p.hd, p.ds, tid);
+  }
+  cp_async_commit();
+
+  auto stage = [&](int jt) {
+    const int s = jt & 1, j0 = jt * kT, n = min(kT, c - j0);
+    if constexpr (!L::kCB) load_tile<T, DSP>(sB(s), bp + j0 * p.bl, p.bl, n, p.ds, tid);
+    load_tile<T, kHdp>(sB(s) + L::kStageB, xp + j0 * p.xl, p.xl, n, p.hd, tid);
+    if (tid < kT) {
+      const bool ok = tid < n;
+      cp_async4(smem_u32(csJ + s * kT + tid), ok ? csp + j0 + tid : csp, ok);
+      cp_async4(smem_u32(dtJ + s * kT + tid), ok ? dtp + (j0 + tid) * p.tl : dtp, ok);
+      cp_async4(smem_u32(vJ + s * kT + tid), ok ? vp + j0 + tid : vp, ok);
+    }
+    cp_async_commit();
+  };
+  stage(0);  // group 1
+
+  cp_async_wait<1>();
+  fence_proxy_async();
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;  // rows r0 and r0 + 8 of the tile
+  float yacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+  if (carry) {
+    // y_i = exp(cs_i) (C_i . S_in^T)
+    if constexpr (sizeof(T) == 2) {
+      fence_regs<32>(yacc);
+      wgmma_fence();
+      wgmma_abt<DSP>(yacc, sC, sS, false);
+      wgmma_abt<DSP>(yacc, sC, sS + L::kBBytes, true);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<32>(yacc);
+    } else {
+      mma_abt_f32<DSP>(yacc, smem + (sC - base), smem + (sS - base), p.ds, r0, g, t);
+    }
+    const float e0 = expf(csI[r0]), e1 = expf(csI[r0 + 8]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] *= (i & 2) ? e1 : e0;
+  }
+  __syncthreads();  // the entering state is read before stage 1 overwrites it
+
+  for (int jt = 0; jt <= it; ++jt) {
+    float sacc[32];
+    if constexpr (L::kCB) {  // float32: S = C_i . B_j^T from ssd_chunk_cb
+      const float4* sp = reinterpret_cast<const float4*>(p.cbt) +
+                         ((int64_t)bk * p.npairs + it * (it + 1) / 2 + jt) * 8 * kThreads + tid;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 v4 = sp[q * kThreads];
+        sacc[4 * q] = v4.x;
+        sacc[4 * q + 1] = v4.y;
+        sacc[4 * q + 2] = v4.z;
+        sacc[4 * q + 3] = v4.w;
+      }
+    }
+    if (jt < it) stage(jt + 1);
+    else cp_async_commit();
+    cp_async_wait<1>();
+    fence_proxy_async();
+    __syncthreads();
+    const int s = jt & 1, j0 = jt * kT;
+    const uint32_t bs = sB(s), xs = bs + L::kStageB;
+    const float* cj = csJ + s * kT;
+    const float* dj = dtJ + s * kT;
+    const float* vj = vJ + s * kT;
+
+    // ---- S = C_i . B_j^T (bf16; float32 loaded it above)
+    if constexpr (!L::kCB) {
+      fence_regs<32>(sacc);
+      wgmma_fence();
+      wgmma_abt<DSP>(sacc, sC, bs, false);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<32>(sacc);
+    }
+
+    // ---- P = S o exp(cs_i - cs_j) o dt_j where j <= i < c, else 0.  The
+    // exponent is never positive.  bf16: the special-function unit's exp
+    // (2 ulp, far inside bf16's).
+    auto ex = [](float d) { return sizeof(T) == 2 ? __expf(d) : expf(d); };
+    const float ninf = __int_as_float(0xff800000);
+    if (jt < it) {
+      // below the diagonal: exp(cs_i - cs_j) = exp(cs_i - cs_e) exp(cs_e - cs_j)
+      // with e the last row of tile j (both factors <= 1), the second one
+      // times dt_j taken per row j once, in the chunk-state kernel (v_j)
+      const float ce = cj[kT - 1];
+      const bool ok0 = i0 + r0 < c, ok1 = i0 + r0 + 8 < c;
+      const float u0 = ex(ok0 ? csI[r0] - ce : ninf);
+      const float u1 = ex(ok1 ? csI[r0 + 8] - ce : ninf);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+        sacc[e] = ((e & 2) ? ok1 : ok0) ? (sacc[e] * ((e & 2) ? u1 : u0)) * vj[col] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int row = r0 + ((e & 2) ? 8 : 0);
+        const int col = 8 * (e >> 2) + 2 * t + (e & 1);
+        const bool ok = j0 + col <= i0 + row && i0 + row < c;
+        sacc[e] = ok ? (sacc[e] * ex(csI[row] - cj[col])) * dj[col] : 0.f;
+      }
+    }
+
+    // ---- y_i += P . x_j
+    if constexpr (sizeof(T) == 2) {
+      uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pack_split(sacc[8 * kk + 0], sacc[8 * kk + 1], phi[kk][0], plo[kk][0]);
+        pack_split(sacc[8 * kk + 2], sacc[8 * kk + 3], phi[kk][1], plo[kk][1]);
+        pack_split(sacc[8 * kk + 4], sacc[8 * kk + 5], phi[kk][2], plo[kk][2]);
+        pack_split(sacc[8 * kk + 6], sacc[8 * kk + 7], phi[kk][3], plo[kk][3]);
+      }
+      fence_regs<32>(yacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = smem_desc(xs + kk * 2048);  // x read MN-major
+        wgmma_rs(yacc, phi[kk], db);
+        wgmma_rs(yacc, plo[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<32>(yacc);
+    } else {
+      const unsigned char* xt = smem + (xs - base);
+#pragma unroll
+      for (int kb = 0; kb < 8; ++kb) {
+        // A column t <-> chunk row 2t, column t + 4 <-> row 2t + 1 of this block
+        uint32_t ahi[4], alo[4];
+        split_tf32(sacc[4 * kb + 0], ahi[0], alo[0]);
+        split_tf32(sacc[4 * kb + 2], ahi[1], alo[1]);
+        split_tf32(sacc[4 * kb + 1], ahi[2], alo[2]);
+        split_tf32(sacc[4 * kb + 3], ahi[3], alo[3]);
+        const int key = 8 * kb + 2 * t;
+        uint32_t bhi[8][2], blo[8][2];
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          const int d = 8 * jb + g;
+          split_tf32(ld_tile<float>(xt, key, d), bhi[jb][0], blo[jb][0]);
+          split_tf32(ld_tile<float>(xt, key + 1, d), bhi[jb][1], blo[jb][1]);
+        }
+        mma_3xtf32<8>(yacc, ahi, alo, bhi, blo);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is loaded again
+  }
+
+  // ---- y_i + D x_i (x_i is the last j tile, still staged), rows < c, cols < hd
+  const unsigned char* xi = smem + (sB(it & 1) + L::kStageB - base);
+  const float dco = p.D[h];
+  T* yp = static_cast<T*>(p.y) + ((int64_t)b * p.L + t0 + i0) * p.nh * p.hd +
+          (int64_t)h * p.hd;
+  const int64_t yl = (int64_t)p.nh * p.hd;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+    const int col = 8 * nb + 2 * t;
+    if (col >= p.hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 8 * half;
+      if (row >= ni) continue;
+      const float v0 = yacc[4 * nb + 2 * half] + dco * ld_tile<T>(xi, row, col);
+      const float v1 = yacc[4 * nb + 2 * half + 1] + dco * ld_tile<T>(xi, row, col + 1);
+      store2(yp + row * yl + col, v0, v1);
+    }
+  }
+}
+
+// ------------------------------------------- float32: C.B^T once per chunk
+
+// C_i . B_j^T for one (batch x chunk, tile pair j <= i), in 3xTF32, written
+// in the chunk scan's accumulator order (float4 q of thread tid at q x 128 +
+// tid): the heads share B and C, so the float32 scan reads it instead of
+// recomputing it per head.
+template <int DSP>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_cb(const Args p) {
+  using L = Tiles<float, DSP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const int tid = threadIdx.x;
+  const int bk = blockIdx.x, pair = blockIdx.y;  // pair = it (it + 1) / 2 + jt
+  int it = (int)((sqrtf(8.f * pair + 1.f) - 1.f) * 0.5f);
+  while ((it + 1) * (it + 2) / 2 <= pair) ++it;
+  while (it * (it + 1) / 2 > pair) --it;
+  const int jt = pair - it * (it + 1) / 2;
+  const int b = bk / p.nc, k = bk - b * p.nc, c = p.c;
+  const int64_t t0 = (int64_t)k * c;
+  const int i0 = it * kT, j0 = jt * kT;
+  const float* cpp = static_cast<const float*>(p.Cm) + b * p.cb + t0 * p.cl;
+  const float* bpp = static_cast<const float*>(p.Bm) + b * p.bb + t0 * p.bl;
+  load_tile<float, DSP>(base, cpp + i0 * p.cl, p.cl, min(kT, c - i0), p.ds, tid);
+  load_tile<float, DSP>(base + L::kBBytes, bpp + j0 * p.bl, p.bl, min(kT, c - j0), p.ds,
+                        tid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float acc[32];
+  mma_abt_f32<DSP>(acc, smem, smem + L::kBBytes, p.ds, 16 * warp + g, g, t);
+  float4* o = reinterpret_cast<float4*>(p.cbt) + ((int64_t)bk * p.npairs + pair) * 8 * kThreads +
+              tid;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    o[q * kThreads] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+}
+
+// ------------------------------------------------------------------- host
+
+template <typename T, int DSP>
+int launch(const Args& a, int batch, int smem_state, int smem_scan,
            cudaStream_t stream) {
-  const size_t smem = smem_floats(hd, ds, c) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  using L = Tiles<T, DSP>;
+  if (smem_state != L::state_smem(a.c) || smem_scan != L::kScan) return kErrPlan;
+  static bool attr_set[64] = {};  // per device: the shared-memory opt-ins
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !attr_set[dev]) {
+    e = cudaFuncSetAttribute(ssd_chunk_state<T, DSP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::state_smem(kMaxChunk));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ssd_chunk_scan<T, DSP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kScan);
+    if constexpr (L::kCB) {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(ssd_chunk_cb<DSP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, L::kCBSmem);
+    }
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) attr_set[dev] = true;
+  }
+  if constexpr (L::kCB) {
+    ssd_chunk_cb<DSP><<<dim3(batch * a.nc, a.npairs), kThreads, L::kCBSmem, stream>>>(a);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid(nh, batch);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)A, (const T*)Bm,
-      (const T*)Cm, (const float*)D, (T*)y, (float*)state, L, nh, hd, ds, c,
-      st);
+  ssd_chunk_state<T, DSP><<<dim3(batch * a.nc, a.nh, DSP / L::kStateW), kThreads, smem_state,
+                            stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_state_pass<T><<<dim3((a.hd * a.ds + 4 * kPassThreads - 1) / (4 * kPassThreads), a.nh, batch),
+                   kPassThreads, 0, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  ssd_chunk_scan<T, DSP><<<dim3(batch * a.nc, a.nh, a.nt), kThreads, smem_scan, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -330,27 +916,65 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm,
 
 extern "C" {
 
-// dtype of x, B, C and y: 0 = float32, 1 = bfloat16; dt, A, D and the state
-// are float32.  strides: 10 element strides, (batch, seq, head) for x and
-// dt, (batch, seq) for B and C.  L % chunk == 0.
+// dtype of x, B, C and y: 0 = float32, 1 = bfloat16; dt, A, D, the state
+// and the scratch are float32: cs and v (b x chunks x nh x chunk), states
+// and sin (b x chunks x nh x hd x ds), and for float32 only cbt (b x chunks
+// x tile pairs x 64 x 64; null for bf16).  strides: 10 element strides, (batch, seq, head) for x
+// and dt, (batch, seq) for B and C.  L % chunk == 0.  state_pad /
+// smem_state / smem_scan: the wrapper's launch plan.
 int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void* A,
                  const void* Bm, const void* Cm, const void* D, void* y,
-                 void* state, int batch, int L, int nh, int hd, int ds,
-                 int chunk, const int64_t* strides, void* stream) {
+                 void* state, void* cs, void* v, void* states, void* sin, void* cbt,
+                 int batch,
+                 int L, int nh,
+                 int hd, int ds, int chunk, const int64_t* strides, int state_pad,
+                 int smem_state, int smem_scan, void* stream) {
   if (batch == 0 || nh == 0) return 0;
-  if (L <= 0 || chunk <= 0 || chunk > kMaxChunk || L % chunk != 0 ||
-      hd <= 0 || hd > kMaxHd || ds <= 0 || ds > kMaxDs || batch > 65535)
+  if (L <= 0 || chunk <= 0 || chunk > kMaxChunk || L % chunk != 0 || hd <= 0 ||
+      hd > kHdp || hd % 8 != 0 || ds <= 0 || ds > state_pad || ds % 8 != 0 ||
+      batch > 65535 || nh > 65535)
     return (int)cudaErrorInvalidValue;
-  Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
-             strides[5], strides[6], strides[7], strides[8], strides[9]};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, D, y, state, batch, L, nh, hd, ds,
-                         chunk, st, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, state, batch, L, nh,
-                                 hd, ds, chunk, st, s);
-  return (int)cudaErrorInvalidValue;
+  Args a;
+  a.x = x;
+  a.dt = static_cast<const float*>(dt);
+  a.A = static_cast<const float*>(A);
+  a.Bm = Bm;
+  a.Cm = Cm;
+  a.D = static_cast<const float*>(D);
+  a.y = y;
+  a.state = static_cast<float*>(state);
+  a.cs = static_cast<float*>(cs);
+  a.v = static_cast<float*>(v);
+  a.states = static_cast<float*>(states);
+  a.sin = sin;
+  a.cbt = static_cast<float*>(cbt);
+  a.L = L;
+  a.nh = nh;
+  a.hd = hd;
+  a.ds = ds;
+  a.c = chunk;
+  a.nc = L / chunk;
+  a.nt = (chunk + kT - 1) / kT;
+  a.npairs = a.nt * (a.nt + 1) / 2;
+  a.xb = strides[0];
+  a.xl = strides[1];
+  a.xh = strides[2];
+  a.tb = strides[3];
+  a.tl = strides[4];
+  a.th = strides[5];
+  a.bb = strides[6];
+  a.bl = strides[7];
+  a.cb = strides[8];
+  a.cl = strides[9];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (state_pad == 64) return launch<__nv_bfloat16, 64>(a, batch, smem_state, smem_scan, s);
+    if (state_pad == 128) return launch<__nv_bfloat16, 128>(a, batch, smem_state, smem_scan, s);
+  } else if (dtype == 0) {
+    if (state_pad == 64) return launch<float, 64>(a, batch, smem_state, smem_scan, s);
+    if (state_pad == 128) return launch<float, 128>(a, batch, smem_state, smem_scan, s);
+  }
+  return kErrPlan;
 }
 
 }  // extern "C"

@@ -178,6 +178,8 @@ SSD_CASES = {
     "reduced_mamba2": (2, 96, 8, 32, 16, 32),
     "narrow_many_chunks": (2, 64, 4, 16, 16, 16),
     "odd_dims": (1, 80, 3, 24, 40, 40),   # hd, ds off the 16 x 16 / 8 x 32 tilings
+    "many_chunks": (1, 4096, 8, 64, 128, 256),  # 16 chunks through the state passing
+    "jamba_shaped": (1, 128, 128, 64, 16, 64),  # jamba-v0.1-52b's 128 heads, ds 16
 }
 
 
@@ -214,6 +216,22 @@ def test_ssd_rejects_what_it_cannot_take(cuda):
         tssd.ssd_scan(big, dt[:, :32, :1], A[:1], B[:, :32], C[:, :32], D[:1], chunk=32)
     with pytest.raises(ValueError, match="unit-stride"):
         tssd.ssd_scan(x, dt, A, B[..., ::2], C[..., ::2], D, chunk=32)
+
+
+def test_ssd_refuses_what_its_copies_cannot_read(cuda):
+    """hd and ds go 16 bytes at a time into the tiles, from 16-byte aligned
+    rows: other widths and strides are refused with the reason."""
+    x, dt, A, B, C, D = _xbc_views(cuda, 1, 32, 2, 16, 16, torch.float32)
+    with pytest.raises(ValueError, match="head dim 12 is not a multiple of 8"):
+        tssd.ssd_scan(x[..., :12], dt, A, B, C, D, chunk=32)
+    with pytest.raises(ValueError, match="state size 12 is not a multiple of 8"):
+        tssd.ssd_scan(x, dt, A, B[..., :12], C[..., :12], D, chunk=32)
+    odd = torch.zeros((1, 32, 17), device=cuda)[..., :16]   # rows of 68 bytes
+    with pytest.raises(ValueError, match="68 bytes"):
+        tssd.ssd_scan(x, dt, A, odd, C, D, chunk=32)
+    shifted = torch.zeros((1, 32, 20), device=cuda)[..., 1:17]
+    with pytest.raises(ValueError, match="base address"):
+        tssd.ssd_scan(x, dt, A, B, shifted, D, chunk=32)
 
 
 def test_worker_on_cuda_serves_mamba2_through_ssd(cuda, tmp_path):

@@ -10,12 +10,15 @@ Phases, each of which passes or makes the script exit non-zero:
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``; the
    count of HGMMA and HMMA instructions in the flash and ssd_scan
    libraries' SASS, which must show both in each (wgmma for bf16, mma.sync
-   for the 3xTF32 float32 path);
+   for the 3xTF32 float32 path); for the int8 library the I2F count (and
+   each I2F variant apart: integer division emits them too), PRMT and HMMA;
 3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
    decode_attention_int8) against their plain PyTorch versions on the card,
    at their paths' shapes (each path's shape listed first; flash also at
    bf16 prefill lengths, S 1024 to 4096; ssd_scan also at jamba's width
-   and over 32 chunks, with the CUDA kernels it enqueues per call): error; device
+   and over 32 chunks, with the CUDA kernels it enqueues per call; int8
+   decode also at mistral-nemo and MQA S 32768, and the CUDA kernels one
+   call enqueues, which must be one): error; device
    times of kernel, plain version and, for attention, PyTorch's
    ``scaled_dot_product_attention`` as a yardstick (never used by the
    port) and, for int8 decode, the model-dtype ``decode_attention`` on the
@@ -224,11 +227,17 @@ def phase_build(ctx, torch, rt):
         emit({"phase": "build", f"{name}_sass": sass})
         if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
             fail(f"{name}'s SASS lacks tensor-core instructions: {sass}")
+    # the int8 kernel converts int8 to float by a byte permute; integer
+    # division emits I2F too, so each I2F variant is counted apart
+    emit({"phase": "build", "decode_attention_int8_sass": sass_counts(
+        _build, "decode_attention_int8", ("I2F", "PRMT", "HMMA"), variants="I2F")})
 
 
-def sass_counts(_build, name):
-    """HGMMA (wgmma: the bf16 path) and HMMA (mma.sync: the 3xTF32 path)
-    instructions in a built library, by the cuobjdump beside nvcc."""
+def sass_counts(_build, name, opcodes=("HGMMA", "HMMA"), variants=None):
+    """Instructions of each opcode in a built library, by the cuobjdump
+    beside nvcc: by default HGMMA (wgmma: the bf16 path) and HMMA
+    (mma.sync: the 3xTF32 path); ``variants``: also each full opcode that
+    starts with it (I2F.U32.RP, I2F.F64.U64, ...)."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return "not measured"
@@ -241,7 +250,11 @@ def sass_counts(_build, name):
         words = ln.split()
         if len(words) > 2 and words[0].startswith("/*") and words[0].endswith("*/"):
             ops.append(words[2] if words[1].startswith("@") else words[1])
-    return {name: sum(op.startswith(name) for op in ops) for name in ("HGMMA", "HMMA")}
+    counts = {name: sum(op.startswith(name) for op in ops) for name in opcodes}
+    if variants:
+        for op in sorted({op for op in ops if op.startswith(variants)}):
+            counts[op] = ops.count(op)
+    return counts
 
 
 # ------------------------------------------------------------------- phase 3
@@ -444,11 +457,49 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, quick=Fa
     emit(case)
 
 
-def ssd_kernels_per_call(torch, gen):
-    """The CUDA kernels one ``ssd_scan`` call enqueues, read from a profile
-    of one call at mamba2-780m's shape; they must be the plan's."""
+def graph_kernels(torch, fn):
+    """Kernel nodes of a CUDA graph captured around one call of ``fn``
+    (a second reading of the kernels a call enqueues, beside the profile)."""
+    import ctypes
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        rt = ctypes.CDLL("libcudart.so.12")
+    except (TypeError, OSError):
+        return "not measured"
+    with torch.cuda.stream(side):
+        fn()
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    raw = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        return "not measured"
+    nodes = (ctypes.c_void_p * n.value)()
+    if rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        return "not measured"
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds.append(kind.value)
+    del graph
+    return kinds.count(0)  # cudaGraphNodeTypeKernel
+
+
+def kernels_per_call(torch, gen):
+    """The CUDA kernels one call enqueues, read from one profile: ``ssd_scan``
+    at mamba2-780m's shape (the plan's count), ``decode_attention_int8`` at
+    the decode path's shape and at an MQA shape whose clusters combine
+    through the ticket (one each; also counted in a captured CUDA graph)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.decode_attention import decode_attention_int8, quantize_kv
+    from repro_torch.kernels.decode_attention.kernel import plan_for
     from repro_torch.kernels.ssd import ssd_scan
     from repro_torch.kernels.ssd.kernel import launch_plan
 
@@ -459,21 +510,48 @@ def ssd_kernels_per_call(torch, gen):
     dt = torch.rand((b, l, nh), generator=gen, device=dev) * 0.49 + 0.01
     A = -(torch.rand((nh,), generator=gen, device=dev) * 1.5 + 0.5)
     D = torch.randn((nh,), generator=gen, device=dev)
-    ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    calls = {"ssd": lambda: ssd_scan(x, dt, A, B, C, D, chunk=chunk)}
+    shapes = ((1, 32, 32, 2048, 80, 1039), (1, 8, 1, 32768, 64, 32767))
+    for shape in shapes:
+        ib, inh, inkv, S, ihd, pos = shape
+        q = torch.randn((ib, inh, ihd), generator=gen, device=dev).bfloat16()
+        k = quantize_kv(torch.randn((ib, S, inkv, ihd), generator=gen, device=dev))
+        v = quantize_kv(torch.randn((ib, S, inkv, ihd), generator=gen, device=dev))
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        calls[shape] = (lambda q=q, k=k, v=v, pos_t=pos_t, ihd=ihd:
+                        decode_attention_int8(q, *k, *v, pos_t, scale=ihd ** -0.5))
+    for fn in calls.values():
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ssd_scan(x, dt, A, B, C, D, chunk=chunk)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "ssd_" in e.name]
+        for fn in calls.values():
+            fn()
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ssd_names = [n for n in kernels if "ssd_" in n]
     plan = launch_plan(torch.bfloat16, hd, ds, chunk, batch=b, heads=nh, seq=l)
-    emit({"kernel": "ssd_scan", "cuda_kernels_per_call": len(names) if names else
+    emit({"kernel": "ssd_scan", "cuda_kernels_per_call": len(ssd_names) if ssd_names else
           "not measured", "plan_kernels": plan.kernels,
-          "names": [re.search(r"ssd_\w+", n).group(0) for n in names],
+          "names": [re.search(r"ssd_\w+", n).group(0) for n in ssd_names],
           "grids": {"chunk_state": plan.grid_state, "state_pass": plan.grid_pass,
                     "chunk_scan": plan.grid_scan}})
-    if names and len(names) != plan.kernels:
-        fail(f"ssd_scan enqueued {len(names)} CUDA kernels, the plan {plan.kernels}")
+    if ssd_names and len(ssd_names) != plan.kernels:
+        fail(f"ssd_scan enqueued {len(ssd_names)} CUDA kernels, the plan {plan.kernels}")
+    int8_names = [n for n in kernels if "decode_int8_kernel" in n]
+    profiled = len(int8_names) / len(shapes) if int8_names else "not measured"
+    for shape in shapes:
+        ib, inh, inkv, S, ihd, pos = shape
+        plan = plan_for(dev, torch.bfloat16, ib, S, inh, inkv, ihd)
+        in_graph = graph_kernels(torch, calls[shape])
+        emit({"kernel": "decode_attention_int8", "shape": list(shape),
+              "cuda_kernels_per_call": profiled, "kernels_in_a_captured_graph": in_graph,
+              "plan_kernels": plan.kernels, "names": sorted(set(int8_names)),
+              "splits": plan.splits, "cluster": plan.cluster, "groups": plan.groups})
+        counts = [c for c in (profiled, in_graph) if c != "not measured"]
+        if not counts:
+            fail("decode_attention_int8: the kernels a call enqueues were not measured")
+        if any(c != 1 for c in counts):
+            fail(f"decode_attention_int8 enqueued {counts} CUDA kernels a call, not 1")
 
 
 def decode_case(ctx, torch, gen, label, b, nh, nkv, S, hd, pos, dtype, *, quick=False):
@@ -484,17 +562,18 @@ def decode_case(ctx, torch, gen, label, b, nh, nkv, S, hd, pos, dtype, *, quick=
     from repro_torch.kernels.decode_attention import (decode_attention_int8,
                                                       decode_attention_int8_ref,
                                                       quantize_kv)
-    from repro_torch.kernels.decode_attention.kernel import TILE, num_splits
+    from repro_torch.kernels.decode_attention.kernel import cluster_slots, plan_for
     from repro_torch.models.attention import decode_attention
 
     dev = torch.device("cuda")
     dname = str(dtype).replace("torch.", "")
     scale = hd ** -0.5
     live = min(pos + 1, S)
-    # the kernel's split layout: each split walks this many 128-key tiles,
-    # rescaling its running (m, l, acc) from one tile to the next
-    nsplit = num_splits(dev, b, S, nkv)
-    tiles_per_split = -(-(-(-live // TILE)) // nsplit)
+    # the kernel's split layout: each warp of a split walks one 32-key slice
+    # of each of its CTA's stages, rescaling its running (m, l, acc) from one
+    # slice to the next
+    plan = plan_for(dev, dtype, b, S, nh, nkv, hd)
+    slices_per_warp = -(-(-(-live // plan.stage_keys)) // plan.splits)
     e = torch.empty((), dtype=dtype).element_size()
     # each input read once up to pos, the output written once
     nbytes = (2 * b * live * nkv * hd + 2 * 4 * b * live * nkv + 2 * b * nh * hd * e + 4)
@@ -533,8 +612,14 @@ def decode_case(ctx, torch, gen, label, b, nh, nkv, S, hd, pos, dtype, *, quick=
     t_ops = ops / PEAK_OPS["float32"] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     case = {"kernel": "decode_attention_int8", "case": label, "dtype": dname, "b": b,
-            "nh": nh, "nkv": nkv, "S": S, "hd": hd, "pos": pos, "splits": nsplit,
-            "tiles_per_split": tiles_per_split, "max_abs_err": err, "tolerance": tol,
+            "nh": nh, "nkv": nkv, "S": S, "hd": hd, "pos": pos, "splits": plan.splits,
+            "cluster": plan.cluster, "groups": plan.groups, "heads_a_cta": plan.heads,
+            "rows": plan.rows,
+            "slices_per_warp": slices_per_warp, "cuda_kernels_per_call": plan.kernels,
+            # the plan's clusters against those the card holds at once
+            "clusters": plan.units * plan.groups,
+            "clusters_resident": cluster_slots(dev, dtype, plan),
+            "max_abs_err": err, "tolerance": tol,
             "ref_max_abs": float(ref.float().abs().max()),
             "err_vs_model_dtype_rel": rel, "kernel_ms": kernel_ms,
             "eager_ms": eager_ms(torch, lambda: decode_attention_int8(
@@ -609,7 +694,6 @@ def phase_kernels(ctx, torch, rt):
     ssd_case(ctx, torch, gen, "jamba-v0.1-52b width l=1024", 1, 1024, 128, 64, 16, 256, bf16)
     ssd_case(ctx, torch, gen, "mamba2-780m l=8192 (32 chunks)", 1, 8192, dtype=bf16,
              quick=True, **m2)
-    ssd_kernels_per_call(torch, gen)
 
     # the decode path's case first: stablelm-3b, b 1, cache 2048, the
     # decode phase's middle step (prefill 1024 + 32 steps)
@@ -635,9 +719,18 @@ def phase_kernels(ctx, torch, rt):
     for pos in (76, 255):  # tests/test_kernels.py's MQA shape, pos_frac 0.3 and 1
         decode_case(ctx, torch, gen, f"MQA 8:1 S=256 pos={pos}", 1, 8, 1, 256, 64, pos, f32)
     decode_case(ctx, torch, gen, "ragged S=1000 GQA 2:1", 2, 4, 2, 1000, 32, 999, f32)
+    # MQA at b 1 (gemma-2b's heads, and hd 64): the clusters of one kv head
+    # combine through the ticket
+    decode_case(ctx, torch, gen, "MQA 8:1 hd 256 S=32768 b=1", 1, 8, 1, 32768, 256, 32767,
+                bf16)
+    decode_case(ctx, torch, gen, "MQA 8:1 hd 64 S=32768 b=1", 1, 8, 1, 32768, 64, 32767, f32)
     if not any(c["kernel"] == "decode_attention_int8" and c["dtype"] == "float32"
-               and c["tiles_per_split"] > 1 for c in ctx.cases):
-        fail("no float32 int8 decode case has a split over several tiles")
+               and c["slices_per_warp"] > 1 for c in ctx.cases):
+        fail("no float32 int8 decode case has a warp walking several slices")
+    if not any(c["kernel"] == "decode_attention_int8" and c["groups"] > 1
+               for c in ctx.cases):
+        fail("no int8 decode case combines clusters through the ticket")
+    kernels_per_call(torch, gen)
 
 
 # --------------------------------------------------------------- phases 4-6

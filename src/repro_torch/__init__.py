@@ -13,6 +13,17 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (:func:`resolve_device`).
 """
 
+import numpy as _np
+
 from .device import resolve_device
+
+try:  # registers numpy's "bfloat16", the name the JAX package's manifests record
+    import ml_dtypes  # noqa: F401
+except ImportError:
+    # Without it (the machine with the card has none), a manifest's
+    # "bfloat16" resolves to the leaf's 2-byte bit pattern, the form in which
+    # the port carries bfloat16 through numpy (convert.py), so the copied
+    # core reads a JAX-written bfloat16 snapshot unchanged.
+    _np.sctypeDict.setdefault("bfloat16", _np.uint16)
 
 __all__ = ["resolve_device"]

@@ -65,11 +65,14 @@
 // toward zero) over a whole K loop, reach the float32 tolerance of 2e-5 at
 // mamba2 widths, where |C.B| ~ 40 at ds 128.
 //
-// The prefix sum is one thread's sequential float32 loop over the chunk,
-// multiply then add, each rounded (no FMA), in the order of PyTorch's CUDA
-// cumsum along a non-innermost dim: the decays are differences of cs, which
-// reaches about -80 within a chunk, so a different summation order would
-// move them by an ulp of 80 (7.6e-6) and use up the float32 tolerance.
+// The prefix sum takes the order of the reference's jnp.cumsum, which XLA
+// rewrites into a scan over blocks of 16: dt * A rounded (no FMA), a
+// sequential float32 sum inside each block of 16 (one thread a block), the
+// block totals scanned by the same rule (one level at chunk 256, two up to
+// chunk 4096; in order once there are at most 16), then each element plus
+// the previous block's prefix.  The decays are differences of cs, which
+// reaches about -80 within a chunk, so another summation order moves them
+// by an ulp of 80 (7.6e-6) and uses up the float32 tolerance of y.
 //
 // What bounds it on the H100: at mamba2-780m (b 1, l 1024, nh 48, hd 64,
 // ds 128, c 256) the function needs 2.45 GFLOP (the causal half of C.B^T
@@ -102,6 +105,9 @@ constexpr int kSlab = kT * 128;    // bytes of one 128-byte-wide slab of a tile
 constexpr int kMaxChunk = 4096;
 constexpr int kPassThreads = 256;
 constexpr int kErrPlan = 10003;    // plan differs from every instantiation
+constexpr int kScanBlock = 16;     // blocks of the prefix sum (XLA's order)
+// scratch of the prefix sum: the totals of a chunk's blocks, and of theirs
+constexpr int kScanTotals = kMaxChunk / kScanBlock + kScanBlock;
 
 template <typename T, int DSP>
 struct Tiles {
@@ -109,13 +115,15 @@ struct Tiles {
   static constexpr int kXBytes = kHdp / kW * kSlab;    // x tile: 64 rows x 64
   static constexpr int kBBytes = DSP / kW * kSlab;     // B, C, state: 64 rows x DSP
   // chunk state: x and B tiles in a ring of kStages, then dt (becoming w)
-  // and cs of the chunk.  A float32 CTA takes 64 of the ds columns (grid z
+  // and cs of the chunk, then the prefix sum's block totals.  A float32 CTA takes 64 of the ds columns (grid z
   // splits ds), a bf16 one all DSP.
   static constexpr int kStages = sizeof(T) == 2 ? 4 : 2;
   static constexpr int kStateW = sizeof(T) == 4 ? 64 : DSP;
   static constexpr int kStateB = kStateW / kW * kSlab;
   static constexpr int kStateTiles = kStages * (kXBytes + kStateB);
-  static constexpr int state_smem(int c) { return kStateTiles + 8 * c + 1024; }
+  static constexpr int state_smem(int c) {
+    return kStateTiles + 8 * c + 4 * kScanTotals + 1024;
+  }
   // chunk scan: C_i; stage 0 (B_j, x_j); a region that first holds the
   // entering state (bf16: hi and lo tiles, float32: one), then stage 1;
   // cs_i, and cs_j, dt_j and v_j in two stages
@@ -389,6 +397,44 @@ __device__ __forceinline__ void wgmma_abt(float* acc, uint32_t a, uint32_t b,
 // holds, for each 8-column block j, entries 4j + {0, 1} of row 16 w + g at
 // columns 8j + 2t + {0, 1}, and entries 4j + {2, 3} of row 16 w + g + 8.
 
+// a[i0], a[i0 + 1], ... a[i1 - 1] replaced by their running float32 sum,
+// in order; returns the total
+__device__ __forceinline__ float scan_in_order(float* a, int i0, int i1) {
+  float run = a[i0];
+  for (int i = i0 + 1; i < i1; ++i) {
+    run = __fadd_rn(run, a[i]);
+    a[i] = run;
+  }
+  return run;
+}
+
+// Inclusive prefix sum of a[0, n), n <= kMaxChunk, in place, in XLA's order
+// (see the header): one thread a block of 16, the block totals t1 scanned by
+// the same rule (their own blocks' totals in t2), then each element plus
+// the previous block's prefix.  t: kScanTotals floats.  Every thread of the
+// CTA calls it; it ends with a barrier.
+__device__ void prefix_sum16(float* a, int n, float* t, int tid) {
+  constexpr int B = kScanBlock;
+  float* t1 = t;
+  float* t2 = t + kMaxChunk / B;
+  const int n1 = (n + B - 1) / B, n2 = (n1 + B - 1) / B;
+  for (int i = tid; i < n1; i += kThreads) t1[i] = scan_in_order(a, B * i, min(n, B * i + B));
+  __syncthreads();
+  if (n1 > B) {  // a second level: n1 <= 256 totals, n2 <= 16
+    for (int i = tid; i < n2; i += kThreads) t2[i] = scan_in_order(t1, B * i, min(n1, B * i + B));
+    __syncthreads();
+    if (tid == 0) scan_in_order(t2, 0, n2);
+    __syncthreads();
+    for (int i = B + tid; i < n1; i += kThreads) t1[i] = __fadd_rn(t1[i], t2[i / B - 1]);
+    __syncthreads();
+  } else if (tid == 0) {
+    scan_in_order(t1, 0, n1);
+  }
+  __syncthreads();
+  for (int i = B + tid; i < n; i += kThreads) a[i] = __fadd_rn(a[i], t1[i / B - 1]);
+  __syncthreads();
+}
+
 // ------------------------------------------------------- 1. chunk state
 
 template <typename T, int DSP>
@@ -430,32 +476,11 @@ ssd_chunk_state(const Args p) {
   for (int jt = 0; jt < S - 1; ++jt) stage(jt);
   cp_async_wait<S - 1>();
   __syncthreads();
-  // dt_i A, each rounded, in parallel; then one thread's sequential sum,
-  // 32 values at a time through registers
+  // dt_i A, each rounded, in parallel; then the prefix sum in XLA's order
   const float a = p.A[h];
   for (int i = tid; i < c; i += kThreads) sCs[i] = __fmul_rn(sW[i], a);
   __syncthreads();
-  if (tid == 0) {
-    float run = 0.f;
-    int i = 0;
-    for (; i + 32 <= c; i += 32) {
-      float d[32];
-#pragma unroll
-      for (int q = 0; q < 32; ++q) d[q] = sCs[i + q];
-#pragma unroll
-      for (int q = 0; q < 32; ++q) {
-        run = __fadd_rn(run, d[q]);
-        d[q] = run;
-      }
-#pragma unroll
-      for (int q = 0; q < 32; ++q) sCs[i + q] = d[q];
-    }
-    for (; i < c; ++i) {
-      run = __fadd_rn(run, sCs[i]);
-      sCs[i] = run;
-    }
-  }
-  __syncthreads();
+  prefix_sum16(sCs, c, sCs + c, tid);
   const float total = sCs[c - 1];
   float* csp = p.cs + ((int64_t)bk * p.nh + h) * c;
   float* vp = p.v + ((int64_t)bk * p.nh + h) * c;

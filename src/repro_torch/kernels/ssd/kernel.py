@@ -35,6 +35,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64
 MAX_STATE = 128
 MAX_CHUNK = 4096
+SCAN_TOTALS = MAX_CHUNK // 16 + 16   # the prefix sum's block totals (kScanTotals)
 TILE = 64                    # rows of a tile; the head dim is padded to it
 THREADS = 128                # one warpgroup
 PASS_THREADS = 256           # the state-passing kernel
@@ -84,9 +85,9 @@ def _smem(itemsize: int, state_pad: int, chunk: int) -> Tuple[int, int, int]:
     x = _tile_bytes(itemsize, TILE)
     bt = _tile_bytes(itemsize, state_pad)
     # the chunk-state kernel's ring of x and B tiles (a float32 CTA takes 64
-    # of the ds columns)
+    # of the ds columns), dt and cs of the chunk, the prefix sum's totals
     stages, state_b = (4, bt) if itemsize == 2 else (2, _tile_bytes(itemsize, TILE))
-    state = stages * (x + state_b) + 8 * chunk + 1024
+    state = stages * (x + state_b) + 8 * chunk + 4 * SCAN_TOTALS + 1024
     # C_i, stage 0 (B_j for bf16, x_j), then a region that holds the
     # entering state (bf16: hi and lo tiles) before it holds stage 1
     s_tiles, stage = (2, bt + x) if itemsize == 2 else (1, x)
@@ -195,6 +196,17 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernels on CUDA tensors; returns (y (b, l, nh, hd) in
     x's dtype, final state (b, nh, hd, ds) float32)."""
+    y, state, _ = ssd_scan_with_prefix_sums(x, dt, A, B, C, D, chunk=chunk)
+    return y, state
+
+
+def ssd_scan_with_prefix_sums(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+    D: torch.Tensor, *, chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ssd_scan``, and the chunk prefix sums cs (b, chunks, nh, chunk) float32
+    that its chunk-state kernel computed, to hold their order to the plain
+    version's ``prefix_sum`` bit for bit."""
     dev = require_cuda("ssd_scan", x, dt, A, B, C, D)
     _check(x, dt, A, B, C, D)
     b, l, nh, hd = x.shape
@@ -229,4 +241,4 @@ def ssd_scan(
         raise RuntimeError(f"ssd_scan: {_ERRORS[rc]} (error {rc})")
     check_launch("ssd_scan", rc)
     launches.add()
-    return y, state
+    return y, state, cs

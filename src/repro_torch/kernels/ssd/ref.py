@@ -12,6 +12,30 @@ from typing import Tuple
 import torch
 
 
+#: block of XLA's two-level prefix sum (``prefix_sum``)
+SCAN_BLOCK = 16
+
+
+def prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive float32 prefix sum of ``x`` along ``dim``, in the order of
+    the reference's ``jnp.cumsum`` on the CPU: XLA rewrites it into a scan
+    over blocks of 16.  Each block is summed in order; the block totals are
+    scanned by the same rule (in order once there are at most 16); each
+    element then adds the previous block's prefix.  Every add is a float32
+    add (``torch.cumsum`` on the CPU accumulates float32 in double)."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    nb = -(-n // SCAN_BLOCK)
+    xb = torch.nn.functional.pad(x, (0, nb * SCAN_BLOCK - n)).unflatten(-1, (nb, SCAN_BLOCK))
+    part = xb.clone()
+    for i in range(1, SCAN_BLOCK):
+        part[..., i] = part[..., i - 1] + xb[..., i]
+    if nb > 1:
+        prev = prefix_sum(part[..., :-1, -1], -1)  # totals of every block but the last
+        part[..., 1:, :] = part[..., 1:, :] + prev[..., None]
+    return part.flatten(-2)[..., :n].movedim(-1, dim)
+
+
 def check_length(l: int, chunk: int) -> int:
     """JAX's length rule: ``chunk = min(chunk, l)`` and ``l % chunk == 0``
     (a 300-token request at chunk 256 is refused, as by the reference)."""
@@ -47,7 +71,7 @@ def ssd_ref(
         dtc = dt[:, t0:t0 + chunk].to(f32)  # (b, c, nh)
         Bc = B[:, t0:t0 + chunk].to(f32)    # (b, c, ds)
         Cc = C[:, t0:t0 + chunk].to(f32)
-        cs = torch.cumsum(dtc * A, dim=1)   # inclusive, ≤ 0
+        cs = prefix_sum(dtc * A, dim=1)     # inclusive, ≤ 0
         # intra-chunk (the "dual" quadratic form); the exponent is masked
         # BEFORE exp: upper-triangle exponents are positive and overflow to
         # inf (inf · 0 = NaN after masking)

@@ -201,6 +201,29 @@ def test_ssd_matches_plain(cuda, name, dtype):
     torch.testing.assert_close(st, st_ref, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("chunk", [256, 4096])
+def test_ssd_prefix_sums_take_the_plain_order(cuda, chunk):
+    """The chunk-state kernel's prefix sums cs are the plain version's
+    ``prefix_sum`` (XLA's blocks of 16) of dt A bit for bit: one level of
+    block totals at mamba2's chunk of 256, two at 4096.  A sequential
+    float32 sum gives other bits, so the check tells the orders apart."""
+    from repro_torch.kernels.ssd.kernel import ssd_scan_with_prefix_sums
+    from repro_torch.kernels.ssd.ref import prefix_sum
+    b, l, nh, hd, ds = 1, 2 * chunk if chunk == 256 else chunk, 4, 64, 16
+    args = _xbc_views(cuda, b, l, nh, hd, ds, torch.float32)
+    _, _, cs = ssd_scan_with_prefix_sums(*args, chunk=chunk)
+    dt, A = args[1].cpu(), args[2].cpu()
+    da = (dt * A).view(b, l // chunk, chunk, nh)
+    want = prefix_sum(da, 2).permute(0, 1, 3, 2)
+    assert torch.equal(cs.cpu().view(torch.int32), want.contiguous().view(torch.int32))
+    sequential = torch.zeros_like(da)
+    run = torch.zeros_like(da[:, :, 0])
+    for i in range(chunk):
+        run = run + da[:, :, i]
+        sequential[:, :, i] = run
+    assert not torch.equal(sequential.permute(0, 1, 3, 2), want)
+
+
 def test_ssd_rejects_what_it_cannot_take(cuda):
     x, dt, A, B, C, D = _xbc_views(cuda, 1, 96, 2, 16, 16, torch.float32)
     with pytest.raises(ValueError, match="multiple of the SSD chunk"):
@@ -275,10 +298,18 @@ DECODE_CASES = {
     "ragged_S_mid": (1, 4, 2, 333, 16, 200),
     "mistral_nemo_gqa": (2, 32, 8, 4096, 128, 3000),
     "head_dim_256": (1, 2, 1, 300, 256, 150),
-    # b * nkv * tiles above 8 blocks per SM: each split walks several tiles
+    # long caches: each warp of a split walks several 32-key slices
     "stablelm_3b_32k": (1, 32, 32, 32768, 80, 32767),
     "mistral_nemo_32k_mid": (4, 32, 8, 32768, 128, 20000),
     "many_small_tiles": (4, 8, 8, 8192, 32, 8191),
+    # MQA at b 1: clusters combined through the ticket (the second level)
+    "mqa_32k": (1, 8, 1, 32768, 256, 32767),
+    "mqa_32k_hd64": (1, 8, 1, 32768, 64, 32767),
+    # pos before most splits (they load nothing), and pos past S
+    "pos_before_the_splits": (1, 8, 1, 32768, 64, 40),
+    "pos_past_S": (1, 4, 2, 100, 32, 150),
+    # two kv heads a CTA (a long cache over nkv 2)
+    "two_heads_a_cta": (8, 4, 2, 32768, 64, 30000),
 }
 MULTI_TILE = ("stablelm_3b_32k", "mistral_nemo_32k_mid", "many_small_tiles")
 
@@ -319,12 +350,91 @@ def test_decode_int8_matches_plain(cuda, name, dtype):
 
 @pytest.mark.parametrize("name", MULTI_TILE)
 def test_decode_int8_long_cases_split_over_several_tiles(cuda, name):
-    """The cases above that hold the cross-tile rescale: on this card each
-    split of the live keys spans more than one 128-key tile."""
-    from repro_torch.kernels.decode_attention.kernel import TILE, num_splits
+    """The cases above that hold the cross-stage rescale: on this card, at
+    the plan, each CTA walks more than one stage (each warp more than one
+    32-key slice)."""
+    from repro_torch.kernels.decode_attention.kernel import plan_for
     b, nh, nkv, S, hd, pos = DECODE_CASES[name]
-    tiles = -(-(pos + 1) // TILE)
-    assert tiles > num_splits(cuda, b, S, nkv)
+    plan = plan_for(cuda, torch.float32, b, S, nh, nkv, hd)
+    stages = -(-(pos + 1) // plan.stage_keys)
+    assert stages // plan.splits > 1
+
+
+def test_decode_int8_plans_keep_clusters_resident(cuda):
+    """Every plan of the cases above asks for no more clusters than the
+    card holds at once (a cluster past them would wait for a second wave)."""
+    from repro_torch.kernels.decode_attention.kernel import cluster_slots, plan_for
+    for b, nh, nkv, S, hd, _ in DECODE_CASES.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = plan_for(cuda, dtype, b, S, nh, nkv, hd)
+            if plan.cluster > 1:
+                assert plan.units * plan.groups <= cluster_slots(cuda, dtype, plan)
+
+
+def test_decode_int8_negative_pos_gives_zeros(cuda):
+    from repro_torch.kernels import decode_attention as tdec
+    for shape in ((1, 4, 2, 256, 32), (1, 8, 1, 32768, 64)):
+        args = _decode_inputs(cuda, *shape, torch.float32)
+        for pos in (-1, torch.tensor([-5], dtype=torch.int32, device=cuda)):
+            out = tdec.decode_attention_int8(*args, pos, scale=0.2)
+            assert out.shape == (shape[0], shape[1], shape[4])
+            assert not out.abs().any()
+
+
+def test_decode_int8_graph_replays_advance_pos(cuda):
+    """Ten replays of a CUDA graph of the call and a device-side pos += 37,
+    at a shape whose clusters combine through the ticket: every replay
+    matches the plain version at its pos, and leaves the counters at zero."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels.decode_attention import kernel as kmod
+    b, nh, nkv, S, hd = 1, 8, 1, 32768, 64
+    plan = kmod.plan_for(cuda, torch.float32, b, S, nh, nkv, hd)
+    assert plan.groups > 1
+    args = _decode_inputs(cuda, b, nh, nkv, S, hd, torch.float32)
+    pos_t = torch.tensor([1000], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.decode_attention_int8(*args, pos_t, scale=hd ** -0.5)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = tdec.decode_attention_int8(*args, pos_t, scale=hd ** -0.5)
+            pos_t.add_(37)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    pos_t.fill_(1000)
+    before = tdec.launches.value
+    for i in range(10):
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = tdec.decode_attention_int8_ref(*args, 1000 + 37 * i, scale=hd ** -0.5)
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    assert int(pos_t.item()) == 1000 + 370
+    assert tdec.launches.value == before  # a replay is no launch of the wrapper
+    tickets, _ = kmod._scratch[(args[0].device.index, side.cuda_stream)]
+    assert not tickets.any()
+
+
+def test_decode_int8_plans_of_one_instantiation_alternate(cuda):
+    """A long cache (four heads a CTA) and a short one (one head a CTA) run
+    the same instantiation with different shared memory; in turns, with the
+    occupancy query of each plan between, every call still launches and
+    matches the plain version (the opt-in never falls below a plan's)."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels.decode_attention.kernel import cluster_slots, plan_for
+    long_shape, short_shape = (1, 32, 32, 32768, 80), (1, 32, 32, 2048, 80)
+    plans = [plan_for(cuda, torch.bfloat16, b, S, nh, nkv, hd)
+             for b, nh, nkv, S, hd in (long_shape, short_shape)]
+    assert plans[0].rows == plans[1].rows and plans[0].smem > plans[1].smem
+    cases = [(_decode_inputs(cuda, *shape, torch.bfloat16), pos)
+             for shape, pos in ((long_shape, 32767), (short_shape, 1039))]
+    for turn in (0, 1, 0, 1, 0):
+        args, pos = cases[turn]
+        cluster_slots(cuda, torch.bfloat16, plans[1 - turn])
+        out = tdec.decode_attention_int8(*args, pos, scale=80 ** -0.5)
+        ref = tdec.decode_attention_int8_ref(*args, pos, scale=80 ** -0.5)
+        atol = min(2e-2, 1e-2 * ref.float().abs().max().item())
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=atol)
 
 
 def test_decode_int8_rejects_what_it_cannot_take(cuda):

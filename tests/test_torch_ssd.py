@@ -15,6 +15,9 @@ What can be checked here is its arithmetic and its launch plan:
   2e-5, bf16 2e-2; the state 1e-3), and at mamba2-780m's width.  Controls:
   rounding any one of the split operands to a single bf16, or a single TF32
   product, misses a tolerance that the design meets;
+- the prefix sum of the chunk (``prefix_sum``): in the order of the
+  reference's ``jnp.cumsum`` (XLA's blocks of 16), bit for bit, which the
+  kernel's chunk-state phase also takes;
 - the launch plan (``launch_plan``, ``alignment_problem``): every SSM
   configuration of the port, full and reduced, and every CUDA test shape
   fits the card's shared memory, each plan is an instantiation of the
@@ -31,11 +34,13 @@ import torch
 
 torch.set_num_threads(2)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ssd import ssd_scan as pallas_ssd  # noqa: E402
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.configs import get_config, list_archs, reduced  # noqa: E402
+from repro_torch.kernels.ssd import ref as ssd_ref_module  # noqa: E402
 from repro_torch.kernels.ssd import ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd.kernel import (  # noqa: E402
     KERNELS_PER_CALL,
@@ -104,8 +109,8 @@ def emulate(x, dt, A, B, C, D, *, chunk, dtype, f32="3xtf32", round_=()):
     Bc = B.view(b, nc, chunk, -1)[:, :, None]                  # (b, nc, 1, c, ds)
     Cc = C.view(b, nc, chunk, -1)[:, :, None]
     dtc = dt.view(b, nc, chunk, nh).permute(0, 1, 3, 2)        # (b, nc, nh, c)
-    # the prefix sum in the plain version's order (PyTorch's cumsum)
-    cs = torch.cumsum(dt.view(b, nc, chunk, nh) * A, dim=2).permute(0, 1, 3, 2)
+    # the prefix sum in the kernel's and the reference's order
+    cs = ssd_ref_module.prefix_sum(dt.view(b, nc, chunk, nh) * A, 2).permute(0, 1, 3, 2)
     total = cs[..., -1]
     if dtype == "float32":
         m_state = m_cb = m_px = m_in = f32
@@ -204,34 +209,46 @@ def test_emulated_kernel_at_mamba2_width_bf16():
 
 
 def test_emulated_kernel_at_mamba2_width_f32():
-    """The same shape in float32: the state against ssd_chunked at 1e-3, y
-    at 2e-5 against the port's plain version, which takes the kernel's
-    prefix-sum order (the next test shows why not against ssd_chunked)."""
+    """The same shape in float32 against ssd_chunked: y at 2e-5, the state
+    at 1e-3 (the prefix sum in the reference's order makes 2e-5 reachable)."""
     arrs = _inputs(CARD_SHAPE, "float32")
-    t = _torch(arrs)
-    y, st = emulate(*t, chunk=CARD_SHAPE[5], dtype="float32")
-    _, want_st = jax_ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk=CARD_SHAPE[5])
-    assert _ratio(st, want_st, STATE_TOL) <= 1
-    ref_y, ref_st = ssd_ref(*t, chunk=CARD_SHAPE[5])
-    assert _ratio(y, ref_y, TOL["float32"]) <= 1
-    assert _ratio(st, ref_st, STATE_TOL) <= 1
-
-
-def test_float32_y_at_mamba2_width_depends_on_the_prefix_sum_order():
-    """The port's plain version and ssd_chunked differ only in how cumsum
-    orders its float32 sums: a few ulps of cs (which reaches about -80) move
-    the decays by 1e-5 relative, and y by more than 2e-5 at this width, in
-    the reference itself.  So no float32 kernel that keeps PyTorch's order
-    can hold y to ssd_chunked at 2e-5 here; the state stays within 1e-3."""
-    arrs = _inputs(CARD_SHAPE, "float32")
-    t = _torch(arrs)
-    ref_y, ref_st = ssd_ref(*t, chunk=CARD_SHAPE[5])
+    y, st = emulate(*_torch(arrs), chunk=CARD_SHAPE[5], dtype="float32")
     want_y, want_st = jax_ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk=CARD_SHAPE[5])
-    assert _ratio(ref_y, want_y, TOL["float32"]) > 1
+    assert _ratio(y, want_y, TOL["float32"]) <= 1
+    assert _ratio(st, want_st, STATE_TOL) <= 1
+
+
+def test_float32_y_at_mamba2_width_depends_on_the_prefix_sum_order(monkeypatch):
+    """The port's plain version holds y to ssd_chunked at 2e-5 at mamba2
+    width with the prefix sum in XLA's order.  ``torch.cumsum`` in its place
+    (on the CPU it accumulates float32 in double) moves cs, which reaches
+    about -80, by a few ulps, the decays by 1e-5 relative, and y past 2e-5;
+    the state holds 1e-3 either way."""
+    arrs = _inputs(CARD_SHAPE, "float32")
+    t = _torch(arrs)
+    want_y, want_st = jax_ssd_chunked(*(jnp.asarray(a) for a in arrs), chunk=CARD_SHAPE[5])
+    ref_y, ref_st = ssd_ref(*t, chunk=CARD_SHAPE[5])
+    assert _ratio(ref_y, want_y, TOL["float32"]) <= 1
     assert _ratio(ref_st, want_st, STATE_TOL) <= 1
-    da = (t[1] * t[2])[0, :256, 0].numpy()
-    cs_diff = np.abs(np.cumsum(da, dtype=np.float32) - np.asarray(jnp.cumsum(jnp.asarray(da))))
-    assert 0 < cs_diff.max() < 1e-4
+    monkeypatch.setattr(ssd_ref_module, "prefix_sum", lambda x, dim: torch.cumsum(x, dim))
+    cum_y, cum_st = ssd_ref(*t, chunk=CARD_SHAPE[5])
+    assert _ratio(cum_y, want_y, TOL["float32"]) > 1
+    assert _ratio(cum_st, want_st, STATE_TOL) <= 1
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 256, 257, 1024, 4096, 5000])
+def test_prefix_sum_is_jnp_cumsum_bit_for_bit(n):
+    """Along axis 1 of (b, c, nh) under ``jax.jit``, as ssd_chunked takes
+    it: the port's prefix sum gives jnp.cumsum's bits.  Control: a
+    sequential float32 sum gives them only while n <= 17 (one block, or one
+    element past it)."""
+    rng = np.random.default_rng(n)
+    da = (rng.uniform(0.01, 0.5, (2, n, 48)) * -rng.uniform(0.5, 2.0, 48)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(jnp.asarray(da)))
+    got = ssd_ref_module.prefix_sum(torch.from_numpy(da), 1).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    sequential = np.cumsum(da, axis=1, dtype=np.float32)
+    assert np.array_equal(sequential, want) == (n <= 17)
 
 
 @pytest.mark.parametrize("operand", ["p", "w", "s"])
@@ -263,10 +280,14 @@ def test_single_term_tf32_fails_the_float32_tolerance():
     assert _ratio(y1, ref_y, TOL["float32"]) > 1
 
 
-def test_rounded_tf32_split_beats_truncation_at_mamba2_width():
+def test_rounded_tf32_split_beats_truncation_at_mamba2_width(monkeypatch):
     """hi and lo rounded to nearest halve the float32 error of truncated
     splits (unbiased, 2^-24 against 2^-22 of each operand): at mamba2 width
-    truncation spends 90 % of the 2e-5 tolerance on the emulation alone."""
+    truncation spends 90 % of the 2e-5 tolerance on the emulation alone.
+    The emulation and the plain version share one prefix sum, so only the
+    products differ; it is held at ``torch.cumsum``'s order, on whose data
+    the reading was taken (with XLA's order it reads 0.77)."""
+    monkeypatch.setattr(ssd_ref_module, "prefix_sum", lambda x, dim: torch.cumsum(x, dim))
     t = _torch(_inputs(CARD_SHAPE, "float32"))
     ref_y, _ = ssd_ref(*t, chunk=CARD_SHAPE[5])
     rn, _ = emulate(*t, chunk=CARD_SHAPE[5], dtype="float32")
@@ -368,21 +389,23 @@ def test_every_plan_is_an_instantiation():
     assert seen == inst
     # the source's layout: C_i, stage 0, the region of the entering state
     # and stage 1, 7 x 64 floats and 1 KiB of alignment; a ring of x and B
-    # tiles, then 2 c floats
+    # tiles, then 2 c floats and the prefix sum's 272 block totals
     assert "kBBytes + kStage + kR1 + 7 * kT * 4 + 1024" in src
-    assert "kStateTiles + 8 * c + 1024" in src
+    assert "kStateTiles + 8 * c + 4 * kScanTotals + 1024" in src
+    assert "kScanTotals = kMaxChunk / kScanBlock + kScanBlock" in src
+    assert "kScanBlock = 16;" in src
     assert "kStages = sizeof(T) == 2 ? 4 : 2" in src
     assert "kStateTiles = kStages * (kXBytes + kStateB)" in src
     assert "kStateW = sizeof(T) == 4 ? 64 : DSP" in src
     p = launch_plan(torch.bfloat16, 64, 128, 256)
     assert p.smem_scan == 16384 + 24576 + 2 * 16384 + 7 * 64 * 4 + 1024
-    assert p.smem_state == 4 * (8192 + 16384) + 8 * 256 + 1024
+    assert p.smem_state == 4 * (8192 + 16384) + 8 * 256 + 4 * 272 + 1024
     p = launch_plan(torch.float32, 64, 128, 4096)
     assert p.smem_scan == 32768 + 16384 + 32768 + 7 * 64 * 4 + 1024  # no B_j tiles
     assert 2 * (p.smem_scan + 1024) <= 233_472  # two float32 chunk-scan CTAs an SM
     assert p.smem_cb == 2 * 32768 + 1024
     assert "kCBSmem = 2 * kBBytes + 1024" in src
-    assert p.smem_state == 2 * (16384 + 16384) + 8 * 4096 + 1024  # 64 ds columns
+    assert p.smem_state == 2 * (16384 + 16384) + 8 * 4096 + 4 * 272 + 1024  # 64 ds columns
 
 
 @pytest.mark.parametrize("hd,ds,chunk,match", [

@@ -14,11 +14,12 @@ Phases, each of which passes or makes the script exit non-zero:
    each I2F variant apart: integer division emits them too), PRMT and HMMA;
 3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
    decode_attention_int8) against their plain PyTorch versions on the card,
-   at their paths' shapes (each path's shape listed first; flash also at
-   bf16 prefill lengths, S 1024 to 4096; ssd_scan also at jamba's width
-   and over 32 chunks, with the CUDA kernels it enqueues per call; int8
-   decode also at mistral-nemo and MQA S 32768, and the CUDA kernels one
-   call enqueues, which must be one): error; device
+   at their paths' shapes (patch also at olmoe-1b-7b's embed/table and
+   expert leaves; flash also at olmoe-1b-7b's S 256, jamba-v0.1-52b's
+   GQA 32:8 S 1024 and grok-1-314b's GQA 48:8 S 256, and at bf16 prefill lengths, S 1024 to 4096; ssd_scan
+   also at jamba's prefill shape and over 32 chunks, with the CUDA kernels
+   it enqueues per call; int8 decode also at mistral-nemo and MQA S 32768,
+   and the CUDA kernels one call enqueues, which must be one): error; device
    times of kernel, plain version and, for attention, PyTorch's
    ``scaled_dot_product_attention`` as a yardstick (never used by the
    port) and, for int8 decode, the model-dtype ``decode_attention`` on the
@@ -26,7 +27,7 @@ Phases, each of which passes or makes the script exit non-zero:
    calls between CUDA events; the bound (float32 flash and ssd_scan against
    3xTF32's 495 / 3 TFLOP/s); and the kernel's time per eager call, host dispatch
    included;
-4. the dense main path: faas-bench at full width served through
+4. the dense path: faas-bench at full width served through
    ``Worker.invoke`` on the card, forced-cold under every strategy plus a
    warm hit, checked against a CPU worker; the kernel launch counters are
    zeroed just before and read just after, and must show patch and flash
@@ -42,7 +43,18 @@ Phases, each of which passes or makes the script exit non-zero:
    CPU worker; then the same model in float32, every logits row of a
    1024-token forward against the CPU, where a forward without the
    carried state must fail;
-7. prefill and decode through ``make_prefill_step`` / ``make_serve_step``:
+7. the MoE path, the main path of the MoE slice: olmoe-1b-7b at full width
+   (depth cut to 2 layers), bfloat16, three delta-uploaded functions served
+   through ``Worker.invoke`` with 256-token requests, forced-cold
+   ``regular`` and ``snapfaas`` plus a warm hit; counters zeroed just before
+   and read just after must show flash once per layer per forward and
+   patch launches; the tokens dropped per layer (adapter requests must
+   drop some); one ``moe_ffn`` at the path's shape under
+   ``torch.cuda.set_sync_debug_mode("error")``; then float32 logits of
+   every row of a 256-token forward against the CPU, the routing (chosen
+   and kept experts per token and layer) compared first, where k-major
+   slot priority must fail;
+8. prefill and decode through ``make_prefill_step`` / ``make_serve_step``:
    stablelm-3b (2 layers, bf16) prefills 1024 tokens into a 2048 cache
    (one flash launch per layer, timed between CUDA events in two further
    prefills: as it runs, and with the card held busy so that the events
@@ -56,13 +68,24 @@ Phases, each of which passes or makes the script exit non-zero:
    (8 layers, float32) prefills 768 tokens (one ``ssd_scan`` per layer,
    whose final state seeds the cache) and decodes 256, every step against
    a 1024-token forward, where a decode from a zeroed SSM state must fail;
-8. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
+   then olmoe-1b-7b (2 layers) prefills 512 into a 1024 cache and decodes
+   32, timed in bf16, and in float32 at the drop-free capacity E / K
+   holds every step at 1e-4 (a one-position RoPE fault must fail); then
+   jamba-v0.1-52b at full width (one period of 8 layers, 13.3 B
+   parameters) prefills 1024 into a 2048 cache (1 flash and 7 ssd_scan
+   launches) and decodes 32, timed in bf16, and in float32 (53 GB),
+   drop-free, holds every step at 1e-4, where a zeroed SSM state must fail;
+9. grok-1-314b at full width (depth cut to 1 layer), bf16: a 256-token
+   forward, finite logits, one flash launch per forward; then float32
+   logits of every row against the CPU, routing compared first, where the
+   experts' tanh gelu swapped for the exact one must fail;
+10. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
-Then the ``{"kernels": [...]}`` summary (each kernel with its own path's
-launches), the ``nvidia-smi`` line, and last the
+Then the ``{"kernels": [...]}`` summary (each kernel with its launches on
+the path named, and on every path), the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.
 
-About 4 minutes on one H100, the kernels' build included.
+About 5 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -93,6 +116,9 @@ PEAK_OPS_3XTF32 = 495e12 / 3
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 L2_ROTATE_BYTES = 150 * 10**6   # 3x the H100's 50 MB L2
+
+OLMOE_EMBED = 50304 * 2048 * 2            # olmoe-1b-7b embed/table bytes (bf16)
+OLMOE_W_IN = 2 * 64 * 2048 * 1024 * 2     # its ffn/w_in at 2 layers (bf16)
 
 
 def int8_tol(dname: str, ref) -> dict:
@@ -130,7 +156,7 @@ class Ctx:
 
     def __init__(self):
         self.cases = []           # one dict per kernel x shape
-        self.launches = {}        # per kernel: launches on its path's run
+        self.paths = {}           # per path: every kernel's launches in its run
         self.card = ""
 
 
@@ -651,6 +677,11 @@ def phase_kernels(ctx, torch, rt):
                faas_embed // 262144, 262144, f32)
     patch_case(ctx, torch, gen, "stablelm-3b embed/table, 64 KiB chunks",
                stablelm_embed // 65536, 65536, bf16)
+    # the olmoe path's leaves, as the worker hands them over: bytes
+    patch_case(ctx, torch, gen, "olmoe-1b-7b embed/table, 64 KiB chunks",
+               OLMOE_EMBED // 65536, 65536, u8)
+    patch_case(ctx, torch, gen, "olmoe-1b-7b ffn/w_in (2 layers), 64 KiB chunks",
+               OLMOE_W_IN // 65536, 65536, u8)
     patch_case(ctx, torch, gen, "row width not a multiple of 16 bytes", 300, 1000, u8)
     for dt in (f32, bf16):
         patch_case(ctx, torch, gen, "faas-bench embed/table, 64 KiB chunks",
@@ -661,6 +692,11 @@ def phase_kernels(ctx, torch, rt):
     for S in (256, 4, 16, 100):
         flash_case(ctx, torch, gen, f"faas-bench S={S}", 1, 6, 6, S, 64, f32)
     flash_case(ctx, torch, gen, "stablelm-3b S=256", 1, 32, 32, 256, 80, bf16)
+    flash_case(ctx, torch, gen, "olmoe-1b-7b S=256", 1, 16, 16, 256, 128, bf16)
+    flash_case(ctx, torch, gen, "jamba-v0.1-52b GQA 32:8 S=1024", 1, 32, 8, 1024, 128, bf16,
+               quick=True)
+    for dt in (bf16, f32):  # grok's forward runs both: bf16, then float32 against the CPU
+        flash_case(ctx, torch, gen, "grok-1-314b GQA 48:8 S=256", 1, 48, 8, 256, 128, dt)
     for dt in (f32, bf16):
         flash_case(ctx, torch, gen, "GQA 4:1", 1, 8, 2, 256, 64, dt)
         flash_case(ctx, torch, gen, "MQA (reduced gemma-2b)", 1, 4, 1, 100, 32, dt)
@@ -689,8 +725,9 @@ def phase_kernels(ctx, torch, rt):
     ssd_case(ctx, torch, gen, "mamba2-780m l=1024 b=2", 2, 1024, dtype=bf16, **m2)
     for dt in (f32, bf16):  # tests/test_kernels.py's mamba2-like tile
         ssd_case(ctx, torch, gen, "b=2 l=64 nh=4 chunk=64", 2, 64, 4, 64, 128, 64, dt)
-    # jamba-v0.1-52b's mixer width (128 heads x 64, ds 16); a long sequence,
-    # 32 chunks, where the state passing walks its longest chain
+    # jamba-v0.1-52b's mixer as its prefill runs it (128 heads x 64, ds 16,
+    # chunk 256, 1024 tokens); a long sequence, 32 chunks, where the state
+    # passing walks its longest chain
     ssd_case(ctx, torch, gen, "jamba-v0.1-52b width l=1024", 1, 1024, 128, 64, 16, 256, bf16)
     ssd_case(ctx, torch, gen, "mamba2-780m l=8192 (32 chunks)", 1, 8192, dtype=bf16,
              quick=True, **m2)
@@ -815,7 +852,7 @@ def phase_faas(ctx, torch, rt):
         emit({"phase": "faas", "function": s.name, "gpu_vs_cpu_max_abs_err": err,
               "tolerance": "rtol 1e-4, atol 1e-4"})
     counts = _read()                                # main path ends here
-    ctx.launches.update({k: counts[k] for k in ("snapshot_patch", "flash_attention")})
+    ctx.paths["faas-bench served"] = counts
     emit({"phase": "faas", "launches": counts, "forwards": forwards,
           "patch_launches_in_snapfaas_cold_starts": patch_in_snapfaas})
     if patch_in_snapfaas <= 0:
@@ -861,6 +898,7 @@ def phase_stablelm(ctx, torch, rt):
             if not np.allclose(o, outs["regular"], rtol=1e-3, atol=1e-3):
                 fail(f"stablelm-3b {s.name}: {k} differs from regular")
     counts = _read()
+    ctx.paths["stablelm-3b served"] = counts
     emit({"phase": "stablelm", "launches": counts, "forwards": forwards})
     if counts["snapshot_patch"] <= 0:
         fail("stablelm-3b: the patch kernel never ran on the bf16 leaves")
@@ -923,7 +961,7 @@ def phase_mamba2(ctx, torch, rt):
                      f"{float(np.abs(o - outs['regular']).max())}")
         regular[s.name] = outs["regular"]
     counts = _read()                                # SSM path ends here
-    ctx.launches["ssd_scan"] = counts["ssd_scan"]
+    ctx.paths["mamba2-780m served"] = counts
     emit({"phase": "mamba2", "launches": counts, "forwards": forwards})
     if counts["ssd_scan"] != cfg.num_layers * forwards:
         fail(f"mamba2-780m: ssd_scan launches {counts['ssd_scan']} != layers x "
@@ -1050,7 +1088,7 @@ def phase_decode(ctx, torch, rt):
         _, decode_ms = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
         with _rope_off_by_one():
             bad_rows, _ = _decode_timed(torch, serve, params, shifted, tok, prompt, 8)
-    ctx.launches["decode_attention_int8"] = counts["decode_attention_int8"]
+    ctx.paths["stablelm-3b prefill + decode"] = counts
     # bf16 weights and activations: the decode path rounds q, k, v and the
     # softmax weights (cast to bf16 before P.V, as JAX does) where the
     # forward's flash kernel keeps them in f32, and its GEMMs have other
@@ -1135,7 +1173,8 @@ def phase_decode(ctx, torch, rt):
         forward = model.logits(params, Batch(tokens=tok))[0].cpu().numpy()
         _reset()
         first, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
-        scans = _read()["ssd_scan"]
+        ctx.paths["mamba2-780m prefill"] = _read()
+        scans = ctx.paths["mamba2-780m prefill"]["ssd_scan"]
         zeroed = _clone_cache(cache)
         for d in zeroed.values():
             d["ssm"].zero_()
@@ -1160,6 +1199,11 @@ def phase_decode(ctx, torch, rt):
     if np.allclose(zero_rows, want[1:1 + zero_steps], **tol32):
         fail("mamba2-780m: a decode from a zeroed SSM state passes the check: it cannot "
              "see the state prefill carried")
+    del params, cache, zeroed, forward
+    _free(torch)
+
+    _decode_olmoe(ctx, torch)
+    _decode_jamba(ctx, torch)
 
 
 def _clone_cache(cache):
@@ -1270,6 +1314,477 @@ def _ssd_without_carry():
         ssm.ssd_op = op
 
 
+# ------------------------------------------------------------- the MoE paths
+
+def _gb(nbytes) -> float:
+    return nbytes / 2**30
+
+
+def _peak_gb(torch) -> float:
+    return _gb(torch.cuda.max_memory_allocated())
+
+
+def _free(torch) -> None:
+    """After ``del`` of a model's tensors: return them to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _expert_bytes(cfg) -> int:
+    """The expert weights of every MoE layer: what each decode step reads,
+    as JAX's formulation computes every expert for its Cg >= 1 rows."""
+    from repro_torch.models.blocks import build_plan
+
+    plan = build_plan(cfg)
+    per_layer = (3 if cfg.mlp_gated else 2) * cfg.num_experts * cfg.d_model * cfg.moe_d_ff
+    n = sum(k.ffn == "moe" for k in plan.kinds) * plan.n_repeat
+    item = 4 if cfg.dtype == "float32" else 2
+    return n * per_layer * item
+
+
+def _dropped(calls, layers):
+    """Dropped (token, choice) pairs per layer of each forward in ``calls``."""
+    per_call = [int((~c["keep"]).sum()) for c in calls]
+    return [per_call[i:i + layers] for i in range(0, len(per_call), layers)]
+
+
+def _assignment(torch, call, E):
+    """(tokens, E) int8: 0 not chosen, 1 chosen and dropped, 2 kept."""
+    K = call["idx"].shape[-1]
+    idx = call["idx"].reshape(-1, K).cpu()
+    keep = call["keep"].reshape(-1, K).cpu()
+    out = torch.zeros((idx.shape[0], E), dtype=torch.int8)
+    return out.scatter_(1, idx, 1 + keep.to(torch.int8))
+
+
+def _row_check(torch, np, got_l, got_calls, want_l, want_calls, tol, min_margin=1e-5):
+    """Routing first, then logits: per layer, the tokens whose chosen or
+    kept experts differ from ``want``'s, each with its router margin p_K -
+    p_{K+1} in ``want``.  A row is left out of the logits comparison only
+    where its routing differs at a margin below ``min_margin``; a routing
+    difference at a larger margin fails the check."""
+    differ, excluded, wide = [], set(), []
+    for layer, (g, w) in enumerate(zip(got_calls, want_calls)):
+        E = w["probs"].shape[-1]
+        K = w["idx"].shape[-1]
+        rows = (_assignment(torch, g, E) != _assignment(torch, w, E)).any(1)
+        top = w["probs"].reshape(-1, E).float().cpu().topk(K + 1, dim=-1).values
+        margin = top[:, K - 1] - top[:, K]
+        for r in rows.nonzero()[:, 0].tolist():
+            differ.append({"layer": layer, "row": r, "margin": float(margin[r])})
+            if margin[r] < min_margin:
+                excluded.add(r)
+            else:
+                wide.append(r)
+    keep = np.array([r not in excluded for r in range(want_l.shape[0])])
+    diff = np.abs(got_l - want_l)[keep]
+    ok_rows = bool(np.isfinite(got_l).all() and np.allclose(got_l[keep], want_l[keep], **tol))
+    return {"routing_differs": differ[:16], "routing_differs_rows": len(differ),
+            "excluded_rows": sorted(excluded), "max_abs_err": float(diff.max()),
+            "ok": ok_rows and not wide and len(got_calls) == len(want_calls),
+            "logits_ok": ok_rows}
+
+
+def phase_olmoe(ctx, torch, rt):
+    """olmoe-1b-7b at full width (2 layers), bf16, served: three delta
+    uploads through ``Worker.invoke`` with 256-token requests, forced-cold
+    ``regular`` and ``snapfaas`` plus a warm hit; the tokens dropped per
+    layer; one ``moe_ffn`` under the sync debug mode; then float32 logits
+    of every row on the card against the CPU, routing compared first, where
+    k-major slot priority must fail."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_flat, params_to_flat
+    from repro_torch.models import Batch, build_model, moe
+    from repro_torch.serving import Worker
+    from repro_torch.serving.trace import build_delta_specs, request_tokens
+
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    seq = 256
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    emit({"phase": "olmoe", "cut": f"num_layers {full.num_layers} -> {cfg.num_layers}",
+          "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "head_dim": cfg.head_dim, "experts": E, "top_k": K, "moe_d_ff": cfg.moe_d_ff,
+          "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings, "dtype": cfg.dtype,
+          "capacity_factor": cfg.capacity_factor, "params": cfg.param_count(),
+          "capacity_per_expert": max(1, int(cfg.capacity_factor * seq * K / E)),
+          "request_tokens": seq})
+    _free(torch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    # a pooled instance is charged all its bytes: 2 GB each, three functions
+    worker = Worker(os.path.join(rt, "olmoe", "worker"), device="cuda",
+                    pool_budget_bytes=16 << 30)
+    base = model.init(0, device="cuda")
+    worker.register_runtime(cfg.name, model, base)
+    specs = build_delta_specs(os.path.join(rt, "olmoe"), cfg, params_to_flat(base))
+    for spec in specs:
+        worker.register_function(spec)
+    emit({"phase": "olmoe", "setup_s": time.perf_counter() - t0,
+          "delta_mb": {s.name: sum(v.nbytes for v in s.delta.values()) / 2**20
+                       for s in specs}})
+    toks = {s.name: request_tokens(s, np.random.default_rng(5), cfg.vocab_size, seq=seq)
+            for s in specs}
+    forwards = 0
+    calls = []
+    _reset()                                        # this slice's main path starts here
+    with moe.recording(calls):
+        for s in specs:
+            outs = {}
+            for strat, cold in (("regular", True), ("snapfaas", True), ("warm", False)):
+                r = _invoke(worker, s.name, toks[s.name],
+                            "snapfaas" if strat == "warm" else strat, cold)
+                forwards += 1
+                if r.cold != cold:
+                    fail(f"olmoe-1b-7b {s.name} {strat}: cold is {r.cold}")
+                outs[strat] = r.output
+                emit({"phase": "olmoe", "function": s.name, "strategy": strat,
+                      "resolved": str(r.strategy), "cold": r.cold, "boot_s": r.boot_s,
+                      "exec_s": r.exec_s,
+                      "dropped_per_layer": _dropped(calls, cfg.num_layers)[-1]})
+            for k, o in outs.items():
+                if o.shape != (1, 8) or not np.isfinite(o).all():
+                    fail(f"olmoe-1b-7b {s.name} {k}: output {o.shape} not finite")
+                if not np.allclose(o, outs["regular"], rtol=1e-3, atol=1e-3):
+                    fail(f"olmoe-1b-7b {s.name}: {k} differs from regular by "
+                         f"{float(np.abs(o - outs['regular']).max())}")
+    counts = _read()                                # and ends here
+    ctx.paths["olmoe-1b-7b served"] = counts
+    drops = _dropped(calls, cfg.num_layers)
+    adapter_drops = sum(sum(d) for d in drops[:3])
+    emit({"phase": "olmoe", "launches": counts, "forwards": forwards,
+          "dropped_per_layer_per_forward": drops, "adapter_dropped": adapter_drops,
+          "peak_gb": _peak_gb(torch)})
+    if counts["flash_attention"] != cfg.num_layers * forwards:
+        fail(f"olmoe-1b-7b: flash launches {counts['flash_attention']} != layers x "
+             f"forwards {cfg.num_layers * forwards}")
+    if counts["snapshot_patch"] <= 0:
+        fail("olmoe-1b-7b: the patch kernel never ran on the bf16 leaves")
+    if adapter_drops <= 0:
+        fail("olmoe-1b-7b: adapter requests (16 token ids) dropped no tokens")
+
+    # one bf16 moe_ffn at the path's shape: nothing in it may wait on the card
+    ffn = {k: v[0] for k, v in base["blocks"]["pos0"]["ffn"].items()}
+    x = torch.randn((1, seq, cfg.d_model), device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_ffn(ffn, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    emit({"phase": "olmoe", "check": "moe_ffn under set_sync_debug_mode('error')",
+          "shape": list(x.shape), "finite": bool(torch.isfinite(y.float()).all())})
+    if not bool(torch.isfinite(y.float()).all()) or not bool(torch.isfinite(aux)):
+        fail("olmoe-1b-7b: the sync-free moe_ffn gave non-finite values")
+    del worker, base, ffn, x, y
+    _free(torch)
+
+    # float32: every logits row of a 256-token forward against the CPU, the
+    # routing (chosen and kept experts per token and layer) compared first;
+    # k-major slot priority moves which tokens drop and must fail
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32)
+    p32 = m32.init(0, device="cuda")
+    p32_cpu = params_from_flat(params_to_flat(p32), "cpu", template=m32.param_shapes())
+    tok = torch.from_numpy(
+        np.random.default_rng(9).integers(0, cfg.vocab_size, (1, seq), dtype=np.int32))
+    gpu_calls, cpu_calls, bad_calls = [], [], []
+    with torch.no_grad():
+        with moe.recording(gpu_calls):
+            gpu_l = m32.logits(p32, Batch(tokens=tok.cuda()))[0].cpu().numpy()
+        with moe.recording(cpu_calls):
+            cpu_l = m32.logits(p32_cpu, Batch(tokens=tok))[0].numpy()
+        with moe.recording(bad_calls), moe.k_major_priority():
+            bad_l = m32.logits(p32, Batch(tokens=tok.cuda()))[0].cpu().numpy()
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    check = _row_check(torch, np, gpu_l, gpu_calls, cpu_l, cpu_calls, tol32)
+    control = _row_check(torch, np, bad_l, bad_calls, cpu_l, cpu_calls, tol32)
+    emit({"phase": "olmoe", "check": "float32 logits, all rows, GPU vs CPU",
+          "tolerance": tol32, "excluded_if_margin_below": 1e-5,
+          "dropped_per_layer": _dropped(cpu_calls, cfg.num_layers)[0],
+          "result": check, "k_major_control": control, "peak_gb": _peak_gb(torch),
+          "seconds": time.perf_counter() - t0})
+    if not check["ok"]:
+        fail(f"olmoe-1b-7b float32: GPU vs CPU fails: {check}")
+    if control["logits_ok"] or control["ok"]:
+        fail("olmoe-1b-7b float32: k-major slot priority passes the check: it cannot "
+             "see which tokens drop")
+    del p32, p32_cpu
+    _free(torch)
+
+
+def _decode_olmoe(ctx, torch):
+    """olmoe-1b-7b (2 layers): bf16 prefill 512 into a 1024 cache and 32
+    decode steps, timed; then float32, drop-free, every step at 1e-4."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Batch, build_model
+
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    prompt, steps, cache_len = 512, 32, 1024
+    _free(torch)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (1, prompt + steps), dtype=np.int32)).cuda()
+    prefill, serve = make_prefill_step(model, cache_len), make_serve_step(model)
+    with torch.no_grad():
+        _reset()
+        first, cache, prefill_first_s = _prefill_timed(torch, prefill, params,
+                                                       tok[:, :prompt])
+        rows, decode_ms = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+        counts = _read()
+        _, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        _, decode_ms_again = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+    ctx.paths["olmoe-1b-7b prefill + decode"] = counts
+    nbytes = _expert_bytes(cfg)
+    emit({"phase": "decode", "model": "olmoe-1b-7b",
+          "cut": f"num_layers {full.num_layers} -> {cfg.num_layers}", "dtype": cfg.dtype,
+          "prompt": prompt, "decode_steps": steps, "cache_len": cache_len,
+          "capacity_factor": {"prefill": cfg.capacity_factor,
+                              "decode": cfg.num_experts / cfg.num_experts_per_tok},
+          "launches": counts, "prefill_s": prefill_s, "prefill_first_s": prefill_first_s,
+          "decode_ms_per_token": decode_ms_again, "decode_ms_per_token_first": decode_ms,
+          "expert_gb_read_per_decode_step": _gb(nbytes),
+          "expert_bytes_bound_ms_per_step": nbytes / HBM_BYTES_PER_S * 1e3,
+          "peak_gb": _peak_gb(torch)})
+    if not (np.isfinite(first).all() and np.isfinite(rows).all()):
+        fail("olmoe-1b-7b bf16 decode: non-finite logits")
+    if counts["flash_attention"] != cfg.num_layers:
+        fail(f"olmoe-1b-7b prefill: flash launches {counts['flash_attention']} != layers")
+    del params, cache
+    _free(torch)
+
+    # float32 at the drop-free capacity E / K in the forward and the prefill
+    # too: with the published 1.25 the forward drops tokens the decode keeps,
+    # and the two differ by design
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    m32 = build_model(cfg32)
+    p32 = m32.init(0, device="cuda")
+    prefill, serve = make_prefill_step(m32, cache_len), make_serve_step(m32)
+    with torch.no_grad():
+        forward = m32.logits(p32, Batch(tokens=tok))[0].cpu().numpy()
+        first, cache, _ = _prefill_timed(torch, prefill, p32, tok[:, :prompt])
+        shifted = _clone_cache(cache)
+        rows, _ = _decode_timed(torch, serve, p32, cache, tok, prompt, steps)
+        with _rope_off_by_one():
+            bad_rows, _ = _decode_timed(torch, serve, p32, shifted, tok, prompt, 8)
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    want = forward[prompt - 1:prompt + steps]
+    got = np.concatenate([first, rows], 0)
+    err = float(np.abs(got - want).max())
+    bad_err = float(np.abs(bad_rows - want[1:9]).max())
+    emit({"phase": "decode", "model": "olmoe-1b-7b", "dtype": "float32",
+          "capacity_factor": cfg32.capacity_factor,
+          "note": "forward and prefill at the drop-free E/K that decode uses",
+          "logits_vs_forward_max_abs_err": err, "tolerance": tol32,
+          "rope_off_by_one_steps": 8, "rope_off_by_one_max_abs_err": bad_err,
+          "peak_gb": _peak_gb(torch)})
+    if not np.isfinite(got).all() or not np.allclose(got, want, **tol32):
+        fail(f"olmoe-1b-7b float32 decode: logits differ from the forward's rows by {err}")
+    if np.allclose(bad_rows, want[1:9], **tol32):
+        fail("olmoe-1b-7b float32: a decode rotated one position off passes the check")
+    del p32, cache, shifted
+    _free(torch)
+
+
+def _decode_jamba(ctx, torch):
+    """jamba-v0.1-52b at full width, one period of 8 layers: bf16 prefill
+    1024 into a 2048 cache (1 flash and 7 ssd_scan launches) and 32 decode
+    steps, timed; then float32, drop-free, every step at 1e-4 against a
+    forward, where a decode from a zeroed SSM state must fail."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Batch, build_model
+    from repro_torch.models.blocks import build_plan
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, num_layers=8)
+    plan = build_plan(cfg)
+    prompt, steps, cache_len = 1024, 32, 2048
+    n_attn = sum(k.mixer == "attn" for k in plan.kinds) * plan.n_repeat
+    n_mamba = cfg.num_layers - n_attn
+    emit({"phase": "decode", "model": "jamba-v0.1-52b",
+          "cut": f"num_layers {full.num_layers} -> {cfg.num_layers} (one period)",
+          "kinds": [f"{k.mixer}+{k.ffn}" for k in plan.kinds], "d_model": cfg.d_model,
+          "ssm_heads": cfg.ssm_heads, "ssm_head_dim": cfg.ssm_head_dim,
+          "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "experts": cfg.num_experts,
+          "top_k": cfg.num_experts_per_tok, "moe_d_ff": cfg.moe_d_ff,
+          "vocab": cfg.vocab_size, "params": cfg.param_count(), "dtype": cfg.dtype})
+    _free(torch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tok = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, prompt + 256), dtype=np.int32)).cuda()
+    prefill, serve = make_prefill_step(model, cache_len), make_serve_step(model)
+    with torch.no_grad():
+        _reset()
+        first, cache, prefill_first_s = _prefill_timed(torch, prefill, params,
+                                                       tok[:, :prompt])
+        counts = _read()
+        rows, decode_ms_first = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+        _, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt])
+        _, decode_ms = _decode_timed(torch, serve, params, cache, tok, prompt, steps)
+    ctx.paths["jamba-v0.1-52b prefill"] = counts
+    nbytes = _expert_bytes(cfg)
+    emit({"phase": "decode", "model": "jamba-v0.1-52b", "dtype": cfg.dtype,
+          "prompt": prompt, "decode_steps": steps, "cache_len": cache_len,
+          "init_s": init_s, "launches_in_prefill": counts,
+          "prefill_s": prefill_s, "prefill_first_s": prefill_first_s,
+          "decode_ms_per_token": decode_ms, "decode_ms_per_token_first": decode_ms_first,
+          "expert_gb_read_per_decode_step": _gb(nbytes),
+          "expert_bytes_bound_ms_per_step": nbytes / HBM_BYTES_PER_S * 1e3,
+          "peak_gb": _peak_gb(torch)})
+    if not (np.isfinite(first).all() and np.isfinite(rows).all()):
+        fail("jamba-v0.1-52b bf16: non-finite logits")
+    if counts["flash_attention"] != n_attn or counts["ssd_scan"] != n_mamba:
+        fail(f"jamba-v0.1-52b prefill launches {counts}: want {n_attn} flash and "
+             f"{n_mamba} ssd_scan")
+    del params, cache
+    _free(torch)
+
+    # float32 (about 53 GB): drop-free, as for olmoe; the forward runs 1280
+    # tokens (whole SSD chunks of 256) and its rows are causal, so rows
+    # prompt - 1 .. prompt + steps - 1 are the decode's
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    m32 = build_model(cfg32)
+    p32 = m32.init(0, device="cuda")
+    prefill, serve = make_prefill_step(m32, cache_len), make_serve_step(m32)
+    zero_steps = 16
+    with torch.no_grad():
+        forward = m32.logits(p32, Batch(tokens=tok))[0].cpu().numpy()
+        first, cache, _ = _prefill_timed(torch, prefill, p32, tok[:, :prompt])
+        zeroed = _clone_cache(cache)
+        for d in zeroed.values():
+            if "ssm" in d:
+                d["ssm"].zero_()
+        rows, decode_ms = _decode_timed(torch, serve, p32, cache, tok, prompt, steps)
+        zero_rows, _ = _decode_timed(torch, serve, p32, zeroed, tok, prompt, zero_steps)
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    want = forward[prompt - 1:prompt + steps]
+    got = np.concatenate([first, rows], 0)
+    err = float(np.abs(got - want).max())
+    zero_err = float(np.abs(zero_rows - want[1:1 + zero_steps]).max())
+    emit({"phase": "decode", "model": "jamba-v0.1-52b", "dtype": "float32",
+          "capacity_factor": cfg32.capacity_factor,
+          "note": "forward (1280 tokens) and prefill at the drop-free E/K that decode uses",
+          "logits_vs_forward_max_abs_err": err, "tolerance": tol32,
+          "zeroed_state_steps": zero_steps, "zeroed_state_max_abs_err": zero_err,
+          "decode_ms_per_token": decode_ms, "peak_gb": _peak_gb(torch)})
+    if not np.isfinite(got).all() or not np.allclose(got, want, **tol32):
+        fail(f"jamba-v0.1-52b float32 decode: logits differ from the forward's rows by {err}")
+    if np.allclose(zero_rows, want[1:1 + zero_steps], **tol32):
+        fail("jamba-v0.1-52b: a decode from a zeroed SSM state passes the check: it "
+             "cannot see the state prefill carried")
+    del p32, cache, zeroed
+    _free(torch)
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+
+@contextlib.contextmanager
+def _erf_gelu():
+    """The experts' gelu exact (erf), not the tanh form JAX uses: a fault
+    the grok check must see."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+
+    inner = moe.activation
+    moe.activation = lambda x, kind: F.gelu(x) if kind == "gelu" else inner(x, kind)
+    try:
+        yield
+    finally:
+        moe.activation = inner
+
+
+def phase_grok(ctx, torch, rt):
+    """grok-1-314b at full width, one layer: a 256-token bf16 forward, then
+    the float32 forward's logits, every row, on the card against the CPU
+    (routing first), where the exact-gelu control must fail."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Batch, build_model, moe
+
+    full = get_config("grok-1-314b")
+    cfg = dataclasses.replace(full, num_layers=1)
+    seq = 256
+    _free(torch)
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (1, seq), dtype=np.int32)).cuda()
+    times = []
+    with torch.no_grad():
+        _reset()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = model.logits(params, Batch(tokens=tok))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = _read()
+    ctx.paths["grok-1-314b forward"] = counts
+    finite = bool(torch.isfinite(logits).all())
+    emit({"phase": "grok", "cut": f"num_layers {full.num_layers} -> {cfg.num_layers}",
+          "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+          "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+          "moe_d_ff": cfg.moe_d_ff, "act": cfg.hidden_act, "vocab": cfg.vocab_size,
+          "params": cfg.param_count(), "dtype": cfg.dtype, "tokens": seq,
+          "logits_shape": list(logits.shape), "finite": finite, "launches": counts,
+          "forward_s": times[1], "forward_first_s": times[0], "peak_gb": _peak_gb(torch)})
+    if not finite or tuple(logits.shape) != (1, seq, cfg.vocab_size):
+        fail(f"grok-1-314b: logits {tuple(logits.shape)} finite={finite}")
+    if counts["flash_attention"] != 2 * cfg.num_layers:
+        fail(f"grok-1-314b: flash launches {counts['flash_attention']} != layers x forwards")
+    del params, logits
+    _free(torch)
+
+    # float32 (26 GB): 48:8 attention and the tanh-gelu experts held to the CPU
+    t0 = time.perf_counter()
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = m32.init(0, device="cuda")
+    p32_cpu = _cpu_tree(p32)
+    gpu_calls, cpu_calls, bad_calls = [], [], []
+    with torch.no_grad():
+        with moe.recording(gpu_calls):
+            gpu_l = m32.logits(p32, Batch(tokens=tok))[0].cpu().numpy()
+        with moe.recording(cpu_calls):
+            cpu_l = m32.logits(p32_cpu, Batch(tokens=tok.cpu()))[0].numpy()
+        with moe.recording(bad_calls), _erf_gelu():
+            bad_l = m32.logits(p32, Batch(tokens=tok))[0].cpu().numpy()
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    check = _row_check(torch, np, gpu_l, gpu_calls, cpu_l, cpu_calls, tol32)
+    control = _row_check(torch, np, bad_l, bad_calls, cpu_l, cpu_calls, tol32)
+    emit({"phase": "grok", "check": "float32 logits, all rows, GPU vs CPU",
+          "tolerance": tol32, "excluded_if_margin_below": 1e-5,
+          "dropped_per_layer": _dropped(cpu_calls, cfg.num_layers)[0],
+          "result": check, "erf_gelu_control": control, "peak_gb": _peak_gb(torch),
+          "seconds": time.perf_counter() - t0})
+    if not check["ok"]:
+        fail(f"grok-1-314b float32: GPU vs CPU fails: {check}")
+    if control["logits_ok"] or control["ok"]:
+        fail("grok-1-314b float32: exact gelu in the experts passes the check: it cannot "
+             "see the activation")
+    del p32, p32_cpu
+    _free(torch)
+
+
 def phase_serve(ctx, torch, rt):
     from repro_torch.launch import serve
 
@@ -1281,6 +1796,7 @@ def phase_serve(ctx, torch, rt):
                     "--strategies", "snapfaas", "auto", "--device", "cuda",
                     "--root", os.path.join(rt, "serve")])
     counts = _read()
+    ctx.paths["launch.serve"] = counts
     text = buf.getvalue()
     start = text.index("\n[") + 1
     rows, _ = json.JSONDecoder().raw_decode(text[start:])
@@ -1294,38 +1810,44 @@ def phase_serve(ctx, torch, rt):
 
 # ------------------------------------------------------------------- summary
 
-KERNELS = {  # source, the TPU kernel it replaces, the path its launches are read on
+KERNELS = {  # source, the TPU kernel it replaces, the path its launches are read on,
+    # and the phase-3 case at that path's shape
     "snapshot_patch": ("src/repro_torch/csrc/snapshot_patch.cu",
-                       "src/repro/kernels/snapshot_patch/kernel.py:41", "faas-bench"),
+                       "src/repro/kernels/snapshot_patch/kernel.py:41", "olmoe-1b-7b served",
+                       "olmoe-1b-7b embed/table, 64 KiB chunks"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:101", "faas-bench"),
+                        "src/repro/kernels/flash_attention/kernel.py:101",
+                        "olmoe-1b-7b served", "olmoe-1b-7b S=256"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd/kernel.py:80", "mamba2-780m"),
+                 "src/repro/kernels/ssd/kernel.py:80", "jamba-v0.1-52b prefill",
+                 "jamba-v0.1-52b width l=1024"),
     "decode_attention_int8": ("src/repro_torch/csrc/decode_attention_int8.cu",
                               "src/repro/kernels/decode_attention/kernel.py:77",
-                              "stablelm-3b decode"),
+                              "stablelm-3b prefill + decode", "stablelm-3b S=2048 pos=1039"),
 }
 
 
 def summary(ctx):
     out = []
-    for name, (source, replaces, path) in KERNELS.items():
+    for name, (source, replaces, path, at) in KERNELS.items():
         cases = [c for c in ctx.cases if c["kernel"] == name and "kernel_ms" in c]
-        main = cases[0]                  # the main path's shape (listed first)
+        main = next(c for c in cases if c["case"] == at)
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": ctx.launches[name],
+                    "replaces": replaces, "launches": ctx.paths[path][name],
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ms": main["kernel_ms"], "eager_ms": main["eager_ms"],
                     "plain_ms": main["plain_ms"],
                     "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                    "library_ms": main["library_ms"], "at": main["case"],
-                    "path": path})
+                    "library_ms": main["library_ms"], "at": at, "dtype": main["dtype"],
+                    "path": path,
+                    "launches_by_path": {p: c[name] for p, c in ctx.paths.items()}})
     emit({"kernels": out})
 
 
 PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels),
           ("faas", phase_faas), ("stablelm", phase_stablelm), ("mamba2", phase_mamba2),
-          ("decode", phase_decode), ("serve", phase_serve))
+          ("olmoe", phase_olmoe), ("decode", phase_decode), ("grok", phase_grok),
+          ("serve", phase_serve))
 
 
 def main() -> None:
@@ -1346,11 +1868,11 @@ def main() -> None:
             t0 = time.perf_counter()
             run(ctx, torch, rt)
             emit({"phase_done": name, "seconds": time.perf_counter() - t0})
-    if set(ctx.launches) != set(KERNELS):
-        fail("the main path's launch counts were not read")
-    for name in KERNELS:
-        if ctx.launches[name] <= 0:
-            fail(f"{name} was never launched on the main path")
+    for name, (_, _, path, _) in KERNELS.items():
+        if path not in ctx.paths:
+            fail(f"the launch counts of {path} were not read")
+        if ctx.paths[path][name] <= 0:
+            fail(f"{name} was never launched on {path}")
     summary(ctx)
     emit({"total_s": time.perf_counter() - t_all})
     print(ctx.card, flush=True)

@@ -1,6 +1,8 @@
 """Public model API of the port: ``Model`` with ``init``, ``param_shapes``,
 ``forward``, ``logits``, ``init_cache``, ``prefill`` and ``decode_step`` over
-nested dicts of tensors (the dense and SSM paths of ``repro.models.api``)."""
+nested dicts of tensors (the decoder-only paths of ``repro.models.api``:
+dense, MoE, SSM and the hybrid; the encoder-decoder and the VLM prefix
+raise)."""
 
 from __future__ import annotations
 
@@ -74,8 +76,7 @@ class Model:
 
     def _check_family(self) -> None:
         """Raise, naming the ROADMAP item, for a family not ported yet."""
-        for kind in self.plan.kinds:
-            _check_supported(self.cfg, kind)
+        _check_supported(self.cfg)
 
     def _check_batch(self, batch: Batch) -> None:
         self._check_family()
@@ -98,10 +99,13 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int, dtype=None, *,
                    device: DeviceLike = None) -> PyTree:
-        """Zeroed cache for ``decode_step`` in JAX's layout: ``pos{i}/k`` and
-        ``/v`` shaped (n_repeat, b, cache_len, nkv, hd) in ``dtype`` (the
-        model's unless given), ``pos{i}/conv`` (n_repeat, b, width - 1, ch)
-        and ``/ssm`` (n_repeat, b, nh, hd, ds) float32.  With
+        """Zeroed cache for ``decode_step`` in JAX's layout, one slot per
+        position of the macro-block by its mixer (a hybrid plan mixes
+        both): an attention position's ``pos{i}/k`` and ``/v`` shaped
+        (n_repeat, b, cache_len, nkv, hd) in ``dtype`` (the model's unless
+        given), a mamba position's ``pos{i}/conv`` (n_repeat, b, width - 1,
+        ch) and ``/ssm`` (n_repeat, b, nh, hd, ds) float32.  The FFN, MoE
+        or not, keeps no cache.  With
         ``device="meta"`` it is the template that carries a JAX cache across
         (``convert.params_from_flat``)."""
         cfg = self.cfg

@@ -1,8 +1,9 @@
-"""The decoder-only LM (dense and SSM) as tensor functions over a nested
-dict of parameters.
+"""The decoder-only LM (dense, MoE, SSM and hybrid) as tensor functions over
+a nested dict of parameters.
 
-Port of the dense and SSM paths of ``repro.models.transformer``:
-``init_layer`` (attention + MLP, or the mamba mixer), ``init_params``,
+Port of the decoder paths of ``repro.models.transformer``: ``init_layer``
+(attention or the mamba mixer, then an MLP, the MoE FFN or none),
+``init_params``,
 ``apply_layer`` (full sequence, prefill with ``make_cache``, one decode
 token with ``decode``) and ``apply_stack`` as a loop over the leading
 ``n_repeat`` axis of the stacked macro-block parameters and caches.
@@ -12,8 +13,8 @@ snapshots share chunk digests.
 
 The models are functional on purpose: the serving worker hands a different
 restored tree (zero-copy pool shares plus patched leaves) to every
-invocation.  The other families are later slices of the port and raise
-:class:`NotImplementedError` naming their ROADMAP item.
+invocation.  The encoder-decoder family (whisper) is a later slice of the
+port and raises :class:`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..kernels.flash_attention import flash_attention_op
 from .attention import decode_attention
 from .config import LayerKind, ModelConfig
 from .layers import apply_norm, apply_rope, mlp
+from .moe import moe_ffn
 from .ssm import mamba_mixer
 
 PyTree = Any
@@ -49,11 +51,9 @@ def unsupported(what: str, roadmap: str) -> NotImplementedError:
         f"{what} is not ported to PyTorch yet (ROADMAP.md: {roadmap})")
 
 
-def _check_supported(cfg: ModelConfig, kind: LayerKind) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise unsupported("encoder-decoder (whisper)", "enc-dec / VLM / gemma-2 slice")
-    if kind.ffn == "moe":
-        raise unsupported("the MoE FFN", "MoE slice")
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +69,7 @@ def _norm_param(cfg: ModelConfig, make: Maker) -> Dict[str, torch.Tensor]:
 
 
 def init_layer(cfg: ModelConfig, kind: LayerKind, make: Maker) -> PyTree:
-    _check_supported(cfg, kind)
+    _check_supported(cfg)
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.dtype)
     p: Dict[str, Any] = {"ln1": _norm_param(cfg, make)}
@@ -92,25 +92,31 @@ def init_layer(cfg: ModelConfig, kind: LayerKind, make: Maker) -> PyTree:
         p["gate_norm"] = make((d_in,), f32, "zeros")
         p["w_out"] = make((d_in, D), dt, "normal")
     if kind.ffn != "none":
-        F = cfg.d_ff
         p["ln2"] = _norm_param(cfg, make)
-        p["ffn"] = {"w_in": make((D, F), dt, "normal"),
-                    "w_out": make((F, D), dt, "normal")}
+        if kind.ffn == "moe":  # stacked over the experts; the router float32, as in JAX
+            E, F = (cfg.num_experts,), cfg.moe_d_ff
+            p["ffn"] = {"router": make((D, cfg.num_experts), f32, "normal")}
+        else:
+            E, F = (), cfg.d_ff
+            p["ffn"] = {}
+        p["ffn"]["w_in"] = make(E + (D, F), dt, "normal")
+        p["ffn"]["w_out"] = make(E + (F, D), dt, "normal")
         if cfg.mlp_gated:
-            p["ffn"]["w_gate"] = make((D, F), dt, "normal")
+            p["ffn"]["w_gate"] = make(E + (D, F), dt, "normal")
     return p
 
 
 def _stack(trees) -> PyTree:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:  # no copy: a cut-down model at full width fills the card
+        return trees[0].unsqueeze(0)
     return torch.stack(trees)
 
 
 def build_params(cfg: ModelConfig, make: Maker) -> PyTree:
+    _check_supported(cfg)
     plan = blocks_mod.build_plan(cfg)
-    for kind in plan.kinds:
-        _check_supported(cfg, kind)
     dt = torch_dtype(cfg.dtype)
     params: Dict[str, Any] = {
         "embed": {"table": make((cfg.vocab_size, cfg.d_model), dt, "normal")},
@@ -195,7 +201,7 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
     slice), which it updates in place and returns.  ``make_cache`` returns
     the layer's new cache from a full sequence: the rotated k and v padded
     to ``cache_len``, or the mamba mixer's conv and SSM state."""
-    _check_supported(cfg, kind)
+    _check_supported(cfg)
     new_cache = None
     # the residual stream h may be f32 (carry precision); compute in cfg dtype
     cdt = torch_dtype(cfg.dtype) if h.dtype == torch.float32 else h.dtype
@@ -233,7 +239,16 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             new_cache = mcache
     if kind.ffn != "none":
         x2 = apply_norm(h, p["ln2"], cfg.norm).to(cdt)
-        h = h + mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
+        if kind.ffn == "moe":
+            # decode: a handful of tokens, so the drop-free capacity E / K,
+            # and decode agrees with the teacher-forced forward; the forward
+            # and prefill keep the config's (they may drop), as in JAX.  The
+            # aux loss is for training, which sums it (a later slice).
+            cf = float(cfg.num_experts) / cfg.num_experts_per_tok if decode else None
+            y, _ = moe_ffn(p["ffn"], x2, cfg, capacity_factor=cf)
+        else:
+            y = mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
+        h = h + y
     return h, new_cache
 
 

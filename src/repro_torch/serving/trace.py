@@ -9,7 +9,9 @@ after every operation as ``ml_dtypes`` arithmetic rounds.
 
 ``build_specs`` is the JAX package's, and like it needs an FFN weight for
 the adapter's "imported library"; ``build_delta_specs`` builds the same
-three kinds as deltas for a family whose blocks have none (mamba2).
+three kinds as deltas, which hold only the leaves that change: by
+``build_specs``' rules where the blocks have an FFN (dense, MoE, hybrid),
+and on the mixer's weights where they have none (mamba2).
 """
 
 from __future__ import annotations
@@ -92,17 +94,29 @@ def build_delta_specs(
     n_functions: int = 3, seed: int = 0,
 ) -> List[FunctionSpec]:
     """The paper's three kinds as shared-base uploads (``FunctionSpec.delta``
-    holds only the leaves that differ), for a family without an FFN:
+    holds only the leaves that differ).  Where the blocks have an FFN, the
+    leaves ``build_specs`` changes, changed as it changes them:
 
-    * adapter: 16 embedding rows, plus the first layer of ``w_xBC`` + 0.01;
-    * head: ``embed/table`` × 1.01;
-    * fine-tune: every ``/w_out`` and ``/w_z`` + 0.005.
+    * adapter: 16 embedding rows, plus the first ``ffn/w_in`` leaf + 0.01;
+    * head: ``embed/table`` × 1.01 (also where the head is untied);
+    * fine-tune: every ``/wq``, ``/w_in`` and ``/w_out`` + 0.005.
+
+    A family without an FFN (mamba2) takes the first layer of ``w_xBC`` +
+    0.01 for the adapter, and every ``/w_out`` and ``/w_z`` + 0.005 for the
+    fine-tune.  Deltas keep the host from holding a full copy of the
+    weights for every function.
     """
     rng = np.random.default_rng(seed + 1)
     specs: List[FunctionSpec] = []
     kinds = ["adapter", "head", "finetune"]
     src_dir = os.path.join(root, "sources")
     os.makedirs(src_dir, exist_ok=True)
+    ffn_w_in = next((k for k in base_flat if k.endswith("ffn/w_in")), None)
+
+    def shifted(k: str, by: float) -> np.ndarray:
+        vals, rnd = _values(base_flat[k])
+        return _encoded(rnd(vals + by), base_flat[k])
+
     for i in range(n_functions):
         kind = kinds[i % len(kinds)]
         delta: Dict[str, np.ndarray] = {}
@@ -116,19 +130,25 @@ def build_delta_specs(
             vals[rows] = rnd(vals[rows] + rnd(noise * 0.02))
             delta["embed/table"] = _encoded(vals, table)
             touched_rows["embed/table"] = rows
-            key = next(k for k in base_flat if k.endswith("/w_xBC"))
-            vals, rnd = _values(base_flat[key])
-            vals = np.array(vals)
-            vals[0] = rnd(vals[0] + 0.01)  # one layer of the stacked leaf
-            delta[key] = _encoded(vals, base_flat[key])
+            if ffn_w_in is not None:
+                delta[ffn_w_in] = shifted(ffn_w_in, 0.01)
+            else:
+                key = next(k for k in base_flat if k.endswith("/w_xBC"))
+                vals, rnd = _values(base_flat[key])
+                vals = np.array(vals)
+                vals[0] = rnd(vals[0] + 0.01)  # one layer of the stacked leaf
+                delta[key] = _encoded(vals, base_flat[key])
         elif kind == "head":
             vals, rnd = _values(table)
             delta["embed/table"] = _encoded(rnd(vals * 1.01), table)
-        else:  # finetune
-            for k, v in base_flat.items():
+        elif ffn_w_in is not None:  # finetune
+            for k in base_flat:
+                if "/wq" in k or "/w_in" in k or "/w_out" in k:
+                    delta[k] = shifted(k, 0.005)
+        else:
+            for k in base_flat:
                 if k.endswith("/w_out") or k.endswith("/w_z"):
-                    vals, rnd = _values(v)
-                    delta[k] = _encoded(rnd(vals + 0.005), v)
+                    delta[k] = shifted(k, 0.005)
         src = os.path.join(src_dir, f"fn{i}.npz")
         np.savez(src, **delta)
         specs.append(FunctionSpec(

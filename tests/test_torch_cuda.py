@@ -459,7 +459,8 @@ def test_decode_int8_rejects_what_it_cannot_take(cuda):
                                    scale=1.0)
 
 
-@pytest.mark.parametrize("name", ["stablelm-3b", "mamba2-780m"])
+@pytest.mark.parametrize("name", ["stablelm-3b", "mamba2-780m", "olmoe-1b-7b",
+                                  "grok-1-314b", "jamba-v0.1-52b"])
 def test_prefill_decode_on_cuda_matches_cpu(cuda, name):
     """The reduced model in float32: prefill (flash or ssd_scan on the
     card) and three decode steps against the same steps on the CPU; 1e-4,
@@ -480,3 +481,46 @@ def test_prefill_decode_on_cuda_matches_cpu(cuda, name):
         got, cache = serve(params, cache, toks[:, pos].to(cuda), pos)
         want, cache_cpu = serve(params_cpu, cache_cpu, toks[:, pos], pos)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _moe_layer(name, dtype, device):
+    """Layer 0's MoE weights of the reduced ``name`` and its config."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced(get_config(name)), dtype=dtype)
+    params = build_model(cfg).init(0, device=device)
+    pos = next(p for p in params["blocks"].values() if "router" in p.get("ffn", {}))
+    return cfg, {k: v[0] for k, v in pos["ffn"].items()}
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.0])
+def test_moe_ffn_on_cuda_matches_cpu(cuda, cf):
+    """float32, reduced olmoe: the same top-k choices and kept set (equal),
+    y and aux at 1e-5 (summation order only), with and without drops."""
+    from repro_torch.models import moe
+    cfg, ffn = _moe_layer("olmoe-1b-7b", "float32", cuda)
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    with moe.recording([]) as seen:
+        y, aux = moe.moe_ffn(ffn, x, cfg, capacity_factor=cf)
+        y_cpu, aux_cpu = moe.moe_ffn({k: v.cpu() for k, v in ffn.items()}, x.cpu(), cfg,
+                                     capacity_factor=cf)
+    (idx, keep), (idx_cpu, keep_cpu) = ((c["idx"], c["keep"]) for c in seen)
+    assert torch.equal(idx.cpu(), idx_cpu) and torch.equal(keep.cpu(), keep_cpu)
+    assert bool(keep_cpu.all()) == (cf == 8.0)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-6, atol=1e-6)
+
+
+def test_moe_ffn_does_not_synchronise(cuda):
+    """bf16, reduced olmoe at a dropping capacity: one call under the sync
+    debug mode that raises on any host synchronisation."""
+    from repro_torch.models import moe
+    cfg, ffn = _moe_layer("olmoe-1b-7b", "bfloat16", cuda)
+    x = torch.randn((1, 64, cfg.d_model), device=cuda).bfloat16()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_ffn(ffn, x, cfg, capacity_factor=1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(y.float()).all() and torch.isfinite(aux)

@@ -40,13 +40,17 @@ F32 = dict(rtol=2e-5, atol=2e-5)    # f32, summation order only
 MODEL = dict(rtol=1e-4, atol=1e-4)  # a whole f32 model, as test_torch_models.py
 
 # reduced configurations: MHA + LayerNorm, GQA, local/global with both
-# softcaps, the workload model at full width, and the SSM
+# softcaps, the workload model at full width, the SSM, MoE (silu and gelu;
+# capacity factor 8.0, drop-free) and the hybrid
 ARCHS = [
     ("stablelm-3b", True),
     ("mistral-nemo-12b", True),
     ("gemma2-27b", True),
     ("faas-bench", False),
     ("mamba2-780m", True),
+    ("olmoe-1b-7b", True),
+    ("grok-1-314b", True),
+    ("jamba-v0.1-52b", True),
 ]
 
 
@@ -284,7 +288,7 @@ def test_decode_position_outside_the_cache_raises():
 
 
 @pytest.mark.parametrize("name,roadmap", [
-    ("whisper-small", "enc-dec"), ("olmoe-1b-7b", "MoE"),
+    ("whisper-small", "enc-dec"),
 ])
 def test_unported_families_raise_in_cache_and_prefill(name, roadmap):
     tm = build_model(reduced(get_config(name)))

@@ -1,7 +1,7 @@
-"""The port's dense and SSM models against the JAX package's: the parameter
-template (paths, shapes, dtypes), logits from JAX-carried weights, the
-mamba mixer, the unported families, and the bfloat16 bit-pattern
-conversion."""
+"""The port's dense, MoE, SSM and hybrid models against the JAX package's:
+the parameter template (paths, shapes, dtypes), logits from JAX-carried
+weights (the MoE families also at a capacity that drops tokens), the mamba
+mixer, the unported family, and the bfloat16 bit-pattern conversion."""
 
 import dataclasses
 
@@ -52,6 +52,8 @@ def _jax_template_set(name, reduce):
     ("faas-bench", False), ("stablelm-3b", False), ("gemma-2b", False),
     ("mistral-nemo-12b", False), ("gemma2-27b", True), ("stablelm-3b", True),
     ("mamba2-780m", False), ("mamba2-780m", True),
+    ("olmoe-1b-7b", False), ("olmoe-1b-7b", True), ("grok-1-314b", False),
+    ("grok-1-314b", True), ("jamba-v0.1-52b", False), ("jamba-v0.1-52b", True),
 ])
 def test_param_shapes_match_jax(name, reduce):
     cfg = get_config(name)
@@ -62,7 +64,7 @@ def test_param_shapes_match_jax(name, reduce):
 
 
 @pytest.mark.parametrize("name,roadmap", [
-    ("olmoe-1b-7b", "MoE"), ("whisper-small", "enc-dec"), ("jamba-v0.1-52b", "MoE"),
+    ("whisper-small", "enc-dec"),
 ])
 def test_unported_families_raise(name, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
@@ -92,11 +94,10 @@ def test_mamba2_builds_and_its_decode_branch_raises():
     assert out.shape == h.shape and new["ssm"].dtype == torch.float32
 
 
-def _carry(cfg_name, reduce, seq, seed=0, dtype=None):
+def _carry(cfg_name, reduce, seq, seed=0, **overrides):
     jcfg = jax_config(cfg_name)
     jcfg = jax_reduced(jcfg) if reduce else jcfg
-    if dtype:
-        jcfg = dataclasses.replace(jcfg, dtype=dtype)
+    jcfg = dataclasses.replace(jcfg, **overrides)
     jm = jax_build(jcfg)
     jparams = jm.init(seed)
     tokens = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (2, seq), dtype=np.int32)
@@ -104,8 +105,7 @@ def _carry(cfg_name, reduce, seq, seed=0, dtype=None):
     flat = flatten_pytree(jax.tree.map(np.asarray, jparams))
     tcfg = get_config(cfg_name)
     tcfg = reduced(tcfg) if reduce else tcfg
-    if dtype:
-        tcfg = dataclasses.replace(tcfg, dtype=dtype)
+    tcfg = dataclasses.replace(tcfg, **overrides)
     tm = build_model(tcfg)
     params = params_from_flat(flat, "cpu", template=tm.param_shapes())
     with torch.no_grad():
@@ -120,11 +120,25 @@ def _carry(cfg_name, reduce, seq, seed=0, dtype=None):
     ("gemma2-27b", True, 40),       # local/global windows, both softcaps
     ("mistral-nemo-12b", True, 24),  # GQA
     ("mamba2-780m", True, 96),      # SSD: 3 chunks of 32, the state carried
+    ("olmoe-1b-7b", True, 24),      # MoE every layer, MHA
+    ("grok-1-314b", True, 24),      # MoE with gelu, GQA
+    ("jamba-v0.1-52b", True, 64),   # hybrid: mamba + MLP / MoE, one attention layer
 ])
 def test_logits_from_jax_weights_match(name, reduce, seq):
     """f32 on the CPU; only the summation order differs → rtol/atol 1e-4."""
     got, want, _, _ = _carry(name, reduce, seq)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,seq", [("olmoe-1b-7b", 24), ("jamba-v0.1-52b", 64)])
+def test_dropping_moe_logits_match_jax(name, seq):
+    """Capacity factor 1.0 (the reduced configs' 8.0 is drop-free): the
+    forward drops choices, and JAX drops the same ones → f32 1e-4."""
+    from repro_torch.models import moe
+    with moe.recording([]) as calls:
+        got, want, _, _ = _carry(name, True, seq, capacity_factor=1.0)
+    assert sum(int((~c["keep"]).sum()) for c in calls) > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
@@ -168,6 +182,31 @@ def test_bf16_leaves_round_trip_bit_exactly():
     again = params_to_flat(params_from_flat(back, "cpu", template=tm.param_shapes()))
     for k in back:
         np.testing.assert_array_equal(again[k], back[k])
+
+
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "jamba-v0.1-52b"])
+def test_bf16_moe_leaves_carry_unchanged(name):
+    """A bf16 MoE tree from JAX: the 4-D stacked expert weights cross as
+    bf16 bits and the router stays float32, both bit for bit, there and
+    back; the template's dtypes are JAX's."""
+    jcfg = dataclasses.replace(jax_reduced(jax_config(name)), dtype="bfloat16")
+    flat = flatten_pytree(jax.tree.map(np.asarray, jax_build(jcfg).init(3)))
+    tm = build_model(dataclasses.replace(reduced(get_config(name)), dtype="bfloat16"))
+    params = params_from_flat(flat, "cpu", template=tm.param_shapes())
+    moe_paths = [k for k in flat if k.endswith("ffn/router")]
+    assert moe_paths
+    for k in moe_paths:
+        pos = k[:-len("router")]
+        assert flat[k].dtype == np.float32
+        leaf = params["blocks"][k.split("/")[1]]["ffn"]
+        assert leaf["router"].dtype == torch.float32
+        assert leaf["w_in"].dtype == torch.bfloat16 and leaf["w_in"].dim() == 4
+        assert flat[pos + "w_in"].ndim == 4
+    back = params_to_flat(params)
+    assert list(back) == list(flat)
+    for k, v in flat.items():
+        want = v.view(np.uint16) if v.dtype == ml_dtypes.bfloat16 else v
+        np.testing.assert_array_equal(back[k], want, err_msg=k)
 
 
 def test_bf16_rounding_helpers_match_torch():

@@ -1,7 +1,8 @@
 """The port's serving path on the CPU: ``Worker(device="cpu")`` through
 every cold-start strategy, against the JAX worker on the same weights,
-specs and tokens, over a chunk store the JAX registry wrote, in bfloat16
-with ``ml_dtypes`` blocked, and through the cluster and the CLI."""
+specs and tokens (dense, SSM, MoE and hybrid families), over a chunk store
+the JAX registry wrote, in bfloat16 with ``ml_dtypes`` blocked, and through
+the cluster and the CLI."""
 
 import contextlib
 import io
@@ -195,6 +196,63 @@ def test_port_worker_matches_jax_worker_on_mamba2(jax_and_port_mamba2, strategy)
                                    err_msg=s.name)
 
 
+MOE_FAMILIES = ["olmoe-1b-7b", "jamba-v0.1-52b"]
+
+
+@pytest.fixture(scope="module", params=MOE_FAMILIES)
+def jax_and_port_moe(request, tmp_path_factory):
+    """Reduced olmoe (MoE every layer) and jamba (the hybrid): a JAX worker
+    built by JAX's ``build_functions`` (full variants), and the port's
+    worker on JAX's weights with the port's delta uploads."""
+    from repro.serving.trace import build_functions as jax_build_functions
+    from repro_torch.serving import Worker
+    from repro_torch.serving.trace import build_delta_specs
+    name = request.param
+    jcfg = jax_reduced(jax_config(name))
+    jm = jax_build(jcfg)
+    jworker, jspecs = jax_build_functions(str(tmp_path_factory.mktemp("jax")), jcfg, jm,
+                                          n_functions=3)
+    flat = flatten_pytree(jax.tree.map(np.asarray, jm.init(0)))
+    cfg = reduced(get_config(name))
+    model = build_model(cfg)
+    specs = build_delta_specs(str(tmp_path_factory.mktemp("src")), cfg, flat)
+    tworker = Worker(str(tmp_path_factory.mktemp("port")), device="cpu")
+    tworker.register_runtime(cfg.name, model,
+                             params_from_flat(flat, "cpu", template=model.param_shapes()))
+    for spec in specs:
+        tworker.register_function(spec)
+    return jworker, jspecs, tworker, specs, flat, cfg
+
+
+def test_moe_delta_specs_equal_jax_variants(jax_and_port_moe):
+    """Each delta upload holds exactly the leaves where JAX's variant
+    differs from the base, with JAX's values."""
+    _, jspecs, _, specs, flat, _ = jax_and_port_moe
+    assert [s.name for s in specs] == [s.name for s in jspecs]
+    for js, ts in zip(jspecs, specs):
+        differ = {k for k, v in js.variant.items() if not np.array_equal(v, flat[k])}
+        assert set(ts.delta) == differ, js.name
+        for k in differ:
+            np.testing.assert_array_equal(ts.delta[k], js.variant[k], err_msg=k)
+        assert ts.touched_rows == js.touched_rows
+
+
+@pytest.mark.parametrize("strategy", ["regular", "snapfaas"])
+def test_port_worker_matches_jax_worker_on_moe(jax_and_port_moe, strategy):
+    """32-token requests (one SSD chunk in jamba); f32, capacity factor 8.0
+    (drop-free), the attention, scan and expert products summed in other
+    orders → 1e-4."""
+    from repro_torch.serving.trace import request_tokens
+    jworker, jspecs, tworker, specs, _, cfg = jax_and_port_moe
+    for js, ts in zip(jspecs, specs):
+        toks = request_tokens(ts, np.random.default_rng(17), cfg.vocab_size)
+        want = _invoke(jworker, js.name, toks, strategy=strategy, force_cold=True)
+        got = _invoke(tworker, ts.name, toks, strategy=strategy, force_cold=True)
+        assert got.output.shape == want.output.shape == (1, 8)
+        np.testing.assert_allclose(got.output, want.output, rtol=1e-4, atol=1e-4,
+                                   err_msg=ts.name)
+
+
 def test_snapshot_from_jax_registry_restores_in_port(tmp_path):
     """A root written by the JAX registry: the port's worker reopens its
     chunk store, finds every chunk of the same base and function already
@@ -322,6 +380,16 @@ def test_launch_serve_compare_mode_on_cpu(tmp_path):
     rows, _ = json.JSONDecoder().raw_decode(out[out.index("\n[") + 1:])
     assert [r["strategy"] for r in rows] == ["snapfaas", "auto"]
     assert all(r["n_cold"] + r["n_warm"] == 6 for r in rows)
+
+
+@pytest.mark.parametrize("family", MOE_FAMILIES)
+def test_launch_serve_moe_families_on_cpu(family, tmp_path):
+    out = _serve(["--family", family, "--workers", "1", "--functions", "3",
+                  "--requests", "4", "--strategies", "regular", "snapfaas",
+                  "--device", "cpu", "--root", str(tmp_path)])
+    rows, _ = json.JSONDecoder().raw_decode(out[out.index("\n[") + 1:])
+    assert [r["strategy"] for r in rows] == ["regular", "snapfaas"]
+    assert all(r["n_cold"] + r["n_warm"] == 4 for r in rows)
 
 
 def test_launch_serve_trace_mode_on_cpu(tmp_path):

@@ -16,7 +16,10 @@ Phases, each of which passes or makes the script exit non-zero:
    decode_attention_int8) against their plain PyTorch versions on the card,
    at their paths' shapes (patch also at olmoe-1b-7b's embed/table and
    expert leaves; flash also at olmoe-1b-7b's S 256, jamba-v0.1-52b's
-   GQA 32:8 S 1024 and grok-1-314b's GQA 48:8 S 256, and at bf16 prefill lengths, S 1024 to 4096; ssd_scan
+   GQA 32:8 S 1024 and grok-1-314b's GQA 48:8 S 256, at whisper-small's
+   encoder (S 1500, bidirectional) and cross-attention (S 64 and 448 over
+   Sk 1500), at paligemma-3b's prefix-LM mask (MQA 8:1 x 256, S 512,
+   prefix 256), and at bf16 prefill lengths, S 1024 to 4096; ssd_scan
    also at jamba's prefill shape and over 32 chunks, with the CUDA kernels
    it enqueues per call; int8 decode also at mistral-nemo and MQA S 32768,
    and the CUDA kernels one call enqueues, which must be one): error; device
@@ -75,17 +78,29 @@ Phases, each of which passes or makes the script exit non-zero:
    parameters) prefills 1024 into a 2048 cache (1 flash and 7 ssd_scan
    launches) and decodes 32, timed in bf16, and in float32 (53 GB),
    drop-free, holds every step at 1e-4, where a zeroed SSM state must fail;
-9. grok-1-314b at full width (depth cut to 1 layer), bf16: a 256-token
+9. the encoder-decoder and the VLM prefix-LM through the step builders,
+   both whole (full width and depth), bf16: whisper-small (12 encoder +
+   12 decoder layers) over 1500 stub frame embeddings with a 64-token
+   prompt into its 448-token text context, then 32 decode steps (36 flash
+   launches a prefill: encoder, decoder self- and cross-attention);
+   paligemma-3b (18 layers) with 256 stub patch embeddings and 256 text
+   tokens into a 1024 cache, then 32 steps (18 flash launches with the
+   prefix mask); prefill s, decode ms per token, peak GiB; then each in
+   float32, every text row of a forward on the card against the CPU at
+   1e-4, where whisper's encoder run causal and paligemma's prefix dropped
+   must fail, and prefill + 32 decode steps against that forward at 1e-4,
+   where whisper's decode from zeroed cross keys and values must fail;
+10. grok-1-314b at full width (depth cut to 1 layer), bf16: a 256-token
    forward, finite logits, one flash launch per forward; then float32
    logits of every row against the CPU, routing compared first, where the
    experts' tanh gelu swapped for the exact one must fail;
-10. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
+11. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
 Then the ``{"kernels": [...]}`` summary (each kernel with its launches on
 the path named, and on every path), the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.
 
-About 5 minutes on one H100, the kernels' build included.
+About 6.5 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -358,19 +373,22 @@ def device_patch_tail_case(torch, gen):
           "shape": list(base.shape), "chunks": n, "bit_exact": True})
 
 
-def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
-               window=0, softcap=0.0, quick=False):
-    """The kernel against its plain version; ``quick``: fewer replays of the
-    plain version and SDPA (their S x S scores are GBs at prefill lengths)."""
+def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None, causal=True,
+               window=0, softcap=0.0, prefix_len=0, quick=False):
+    """The kernel against its plain version; ``Sk`` keys (S unless given);
+    ``quick``: fewer replays of the plain version and SDPA (their S x Sk
+    scores are GBs at prefill lengths)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 
     dev = torch.device("cuda")
-    q, k, v = (torch.randn((b, S, h, hd), generator=gen, device=dev).to(dtype)
-               for h in (nh, nkv, nkv))
+    Sk = S if Sk is None else Sk
+    q, k, v = (torch.randn((b, n, h, hd), generator=gen, device=dev).to(dtype)
+               for n, h in ((S, nh), (Sk, nkv), (Sk, nkv)))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # the op's views
     scale = hd ** -0.5
-    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
     out = flash_attention(qt, kt, vt, **kw)
     ref = attention_ref(qt, kt, vt, **kw)
     torch.cuda.synchronize()
@@ -386,10 +404,10 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
     kernel_ms = device_ms(torch, [lambda: flash_attention(qt, kt, vt, **kw)])
     plain_ms = device_ms(torch, [lambda: attention_ref(qt, kt, vt, **kw)], **reps)
     qp = torch.arange(S, device=dev)[:, None]
-    kp = torch.arange(S, device=dev)[None, :]
-    allowed = torch.ones((S, S), dtype=torch.bool, device=dev)
+    kp = torch.arange(Sk, device=dev)[None, :]
+    allowed = torch.ones((S, Sk), dtype=torch.bool, device=dev)
     if causal:
-        allowed &= kp <= qp
+        allowed &= (kp <= qp) | (kp < prefix_len)
     if window > 0:
         allowed &= qp - kp < window
     pairs = int(allowed.sum())
@@ -402,13 +420,16 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, causal=True,
     if softcap == 0.0:
         rep = nh // nkv
         ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
-        mask = None if (causal and window == 0) else allowed
+        # no mask where SDPA's own causal or full attention is the same
+        plain_causal = causal and prefix_len == 0 and Sk == S
+        mask = None if window == 0 and (plain_causal or not causal) else allowed
         library_ms = device_ms(torch, [lambda: F.scaled_dot_product_attention(
             qt, ke, ve, attn_mask=mask, is_causal=mask is None and causal, scale=scale)],
             **reps)
     case = {"kernel": "flash_attention", "case": label, "dtype": dname,
-            "b": b, "nh": nh, "nkv": nkv, "S": S, "hd": hd, "causal": causal,
-            "window": window, "softcap": softcap, "max_abs_err": err,
+            "b": b, "nh": nh, "nkv": nkv, "S": S, "Sk": Sk, "hd": hd, "causal": causal,
+            "window": window, "softcap": softcap, "prefix_len": prefix_len,
+            "max_abs_err": err,
             "ops": ops, "bytes": nbytes,
             "ops_peak": "3xTF32, 495/3 TFLOP/s" if dname == "float32" else "bf16, 989 TFLOP/s",
             "kernel_ms": kernel_ms,
@@ -704,6 +725,22 @@ def phase_kernels(ctx, torch, rt):
         flash_case(ctx, torch, gen, "window 64", 1, 6, 6, 256, 64, dt, window=64)
         flash_case(ctx, torch, gen, "softcap 20", 1, 6, 6, 256, 64, dt, softcap=20.0)
     flash_case(ctx, torch, gen, "bidirectional, ragged", 2, 4, 2, 77, 80, f32, causal=False)
+    # the encdec phase's shapes: whisper-small's encoder over 1500 frames
+    # (ragged: 23 tiles of 64 and 28 rows), its decoder's cross-attention of
+    # a 64-token prompt and of its 448-token text context over those
+    # frames, and paligemma-3b's prefix-LM mask over 256 patches; bf16, and
+    # float32 where the phase's float32 forward runs them
+    for dt in (bf16, f32):
+        flash_case(ctx, torch, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64, dt,
+                   causal=False, quick=True)
+        flash_case(ctx, torch, gen, "whisper-small cross S=64 Sk=1500", 1, 12, 12, 64, 64, dt,
+                   Sk=1500, causal=False)
+        flash_case(ctx, torch, gen, "paligemma-3b MQA 8:1 S=512 prefix=256", 1, 8, 1, 512,
+                   256, dt, prefix_len=256, quick=True)
+    flash_case(ctx, torch, gen, "whisper-small cross S=448 Sk=1500", 1, 12, 12, 448, 64, bf16,
+               Sk=1500, causal=False, quick=True)
+    flash_case(ctx, torch, gen, "prefix ends mid-tile, GQA 4:2 S=200 prefix=77", 1, 4, 2, 200,
+               64, f32, prefix_len=77)
     # prefill lengths, bf16: the issue's long-sequence configurations
     flash_case(ctx, torch, gen, "stablelm-3b prefill S=1024", 1, 32, 32, 1024, 80, bf16,
                quick=True)
@@ -1022,24 +1059,28 @@ def phase_mamba2(ctx, torch, rt):
              "check: it cannot see the carry")
 
 
-def _decode_timed(torch, serve, params, cache, tokens, start, steps):
-    """``steps`` teacher-forced decode steps from ``start``; returns the
-    per-step logits (on the host) and the milliseconds per token."""
+def _decode_timed(torch, serve, params, cache, tokens, start, steps, offset=0):
+    """``steps`` teacher-forced decode steps from token ``start``, at
+    position ``offset`` on (a VLM prefix's length); returns the per-step
+    logits (on the host) and the milliseconds per token."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = []
     for pos in range(start, start + steps):
-        logits, cache = serve(params, cache, tokens[:, pos], pos)
+        logits, cache = serve(params, cache, tokens[:, pos], pos + offset)
         outs.append(logits)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     return torch.stack(outs, 1)[0].float().cpu().numpy(), ms
 
 
-def _prefill_timed(torch, prefill, params, tokens):
+def _prefill_timed(torch, prefill, params, tokens, prefix=None):
+    batch = {"tokens": tokens}
+    if prefix is not None:
+        batch["prefix_embeds"] = prefix
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     return logits[0].float().cpu().numpy(), cache, time.perf_counter() - t0
 
@@ -1785,6 +1826,180 @@ def phase_grok(ctx, torch, rt):
     _free(torch)
 
 
+# ------------------------------------------- encoder-decoder and VLM prefix
+
+@contextlib.contextmanager
+def _causal_encoder():
+    """whisper's encoder run causal: the fault a check of its bidirectional
+    attention must see."""
+    from repro_torch.models import api
+
+    stack = api.apply_stack
+    api.apply_stack = lambda *a, causal=True, **kw: stack(*a, causal=True, **kw)
+    try:
+        yield
+    finally:
+        api.apply_stack = stack
+
+
+@contextlib.contextmanager
+def _no_prefix():
+    """Every attention with ``prefix_len`` 0: plain causal attention over
+    the patches, the fault a check of the prefix-LM mask must see."""
+    from repro_torch.models import transformer
+
+    op = transformer.flash_attention_op
+    transformer.flash_attention_op = lambda *a, prefix_len=0, **kw: op(*a, **kw)
+    try:
+        yield
+    finally:
+        transformer.flash_attention_op = op
+
+
+def _close_rows(np, got, want, tol):
+    err = float(np.abs(got - want).max())
+    return {"ok": bool(np.isfinite(got).all() and np.allclose(got, want, **tol)),
+            "max_abs_err": err}
+
+
+def _encdec_run(ctx, torch, name, prompt, cache_len, prefix_len, per_forward, seed, *,
+                layers_note, control, cache_control=None):
+    """One model of the encdec phase at full size: a bf16 prefill of
+    ``prompt`` tokens after ``prefix_len`` stub embeddings (frames or
+    patches, normal x 0.02 from a seeded generator) into ``cache_len``,
+    and 32 decode steps, timed, with flash launches counted; then float32:
+    the forward's text rows on the card against the CPU at 1e-4, where
+    ``control`` must fail, and prefill + 32 decode steps against the
+    card's forward at 1e-4, where a decode from the cache as
+    ``cache_control`` leaves it (if given) must fail."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_config(name)
+    steps = 32
+    encdec = cfg.is_encoder_decoder
+    offset = 0 if encdec else prefix_len     # decode position of text token 0
+    _free(torch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pre32 = torch.randn((1, prefix_len, cfg.d_model), generator=gen, device="cuda") * 0.02
+    pre = pre32.to(params["embed"]["table"].dtype)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt + steps), dtype=np.int32)).cuda()
+    prefill, serve = make_prefill_step(model, cache_len), make_serve_step(model)
+
+    def decode(p, cache, n):
+        return _decode_timed(torch, serve, p, cache, tok, prompt, n, offset)
+
+    with torch.no_grad():
+        _reset()
+        first, cache, prefill_first_s = _prefill_timed(torch, prefill, params,
+                                                       tok[:, :prompt], pre)
+        counts = _read()
+        rows, decode_ms_first = decode(params, cache, steps)
+        _, cache, prefill_s = _prefill_timed(torch, prefill, params, tok[:, :prompt], pre)
+        _, decode_ms = decode(params, cache, steps)
+    ctx.paths[f"{name} prefill"] = counts
+    emit({"phase": "encdec", "model": name, "layers": layers_note, "d_model": cfg.d_model,
+          "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": cfg.param_count(),
+          "dtype": cfg.dtype, "prefix": prefix_len, "prompt": prompt,
+          "cache_len": cache_len, "decode_steps": steps, "init_s": init_s,
+          "launches_in_prefill": counts, "prefill_s": prefill_s,
+          "prefill_first_s": prefill_first_s, "decode_ms_per_token": decode_ms,
+          "decode_ms_per_token_first": decode_ms_first, "peak_gb": _peak_gb(torch)})
+    if not (np.isfinite(first).all() and np.isfinite(rows).all()):
+        fail(f"{name} bf16: non-finite logits")
+    if counts["flash_attention"] != per_forward or sum(counts.values()) != per_forward:
+        fail(f"{name} prefill launches {counts}: want {per_forward} flash and no other kernel")
+    del params, cache
+    _free(torch)
+
+    # float32: the card's forward against the CPU's, then decode against it
+    t0 = time.perf_counter()
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    p32 = m32.init(0, device="cuda")
+    prefill, serve = make_prefill_step(m32, cache_len), make_serve_step(m32)
+    tol32 = dict(rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        _reset()
+        forward = m32.logits(p32, Batch(tokens=tok, prefix_embeds=pre32))[0].cpu().numpy()
+        forward_launches = _read()["flash_attention"]
+        with control[1]():
+            bad = m32.logits(p32, Batch(tokens=tok, prefix_embeds=pre32))[0].cpu().numpy()
+        first, cache, _ = _prefill_timed(torch, prefill, p32, tok[:, :prompt], pre32)
+        broken = None
+        if cache_control is not None:
+            broken = _clone_cache(cache)
+            cache_control[1](broken)
+        rows, decode_ms = decode(p32, cache, steps)
+        if broken is not None:
+            bad_rows, _ = decode(p32, broken, 8)
+        p32_cpu = _cpu_tree(p32)
+        del p32, cache, broken
+        _free(torch)
+        t1 = time.perf_counter()
+        cpu = m32.logits(p32_cpu, Batch(tokens=tok.cpu(), prefix_embeds=pre32.cpu()))[0].numpy()
+        cpu_s = time.perf_counter() - t1
+        del p32_cpu
+    check = _close_rows(np, forward, cpu, tol32)
+    ctrl = _close_rows(np, bad, cpu, tol32)
+    want = forward[prompt - 1:prompt + steps]
+    dec = _close_rows(np, np.concatenate([first, rows], 0), want, tol32)
+    out = {"phase": "encdec", "model": name, "dtype": "float32",
+           "rows": int(forward.shape[0]), "flash_launches_in_forward": forward_launches,
+           "card_vs_cpu": check, f"{control[0]}_control": ctrl,
+           "decode_vs_forward": dec, "tolerance": tol32, "decode_ms_per_token": decode_ms,
+           "cpu_forward_s": cpu_s, "seconds": time.perf_counter() - t0}
+    if cache_control is not None:
+        out[f"{cache_control[0]}_control"] = _close_rows(np, bad_rows, want[1:9], tol32)
+    emit(out)
+    if forward.shape != (prompt + steps, cfg.vocab_size) or forward_launches != per_forward:
+        fail(f"{name} float32: logits {forward.shape}, {forward_launches} flash launches")
+    if not check["ok"]:
+        fail(f"{name} float32: card vs CPU fails: {check}")
+    if ctrl["ok"]:
+        fail(f"{name} float32: the {control[0]} control passes the check: it cannot see it")
+    if not dec["ok"]:
+        fail(f"{name} float32 decode: logits differ from the forward's rows: {dec}")
+    if cache_control is not None and out[f"{cache_control[0]}_control"]["ok"]:
+        fail(f"{name} float32: a decode from a cache with {cache_control[0]} passes the "
+             "check: it cannot see the cache")
+    _free(torch)
+
+
+def _zero_cross(cache):
+    for d in cache.values():
+        d["ck"].zero_()
+        d["cv"].zero_()
+
+
+def phase_encdec(ctx, torch, rt):
+    """whisper-small (12 + 12 layers) over 1500 frames with a 64-token
+    prompt into its 448-token text context, and paligemma-3b (18 layers)
+    with 256 patches and 256 text tokens into a 1024 cache, both whole:
+    every attention through flash (whisper 12 encoder + 12 self + 12 cross
+    a forward, paligemma 18 with the prefix mask)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-small")
+    _encdec_run(ctx, torch, "whisper-small", prompt=64, cache_len=448, prefix_len=1500,
+                per_forward=cfg.num_layers + 2 * cfg.num_decoder_layers, seed=31,
+                layers_note=f"{cfg.num_layers} encoder + {cfg.num_decoder_layers} decoder",
+                control=("causal_encoder", _causal_encoder),
+                cache_control=("zeroed_ck_cv", _zero_cross))
+    cfg = get_config("paligemma-3b")
+    _encdec_run(ctx, torch, "paligemma-3b", prompt=256, cache_len=1024,
+                prefix_len=cfg.num_prefix_tokens, per_forward=cfg.num_layers, seed=37,
+                layers_note=f"{cfg.num_layers}", control=("prefix_0", _no_prefix))
+
+
 def phase_serve(ctx, torch, rt):
     from repro_torch.launch import serve
 
@@ -1846,7 +2061,8 @@ def summary(ctx):
 
 PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels),
           ("faas", phase_faas), ("stablelm", phase_stablelm), ("mamba2", phase_mamba2),
-          ("olmoe", phase_olmoe), ("decode", phase_decode), ("grok", phase_grok),
+          ("olmoe", phase_olmoe), ("decode", phase_decode), ("encdec", phase_encdec),
+          ("grok", phase_grok),
           ("serve", phase_serve))
 
 

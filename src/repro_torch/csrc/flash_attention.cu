@@ -5,14 +5,19 @@
 // src/repro/kernels/flash_attention/kernel.py (_kernel).  It computes what
 // that kernel computes: per (batch, q head) with kv head = q head / rep
 // (GQA, MQA), scores = (q . k) * scale, soft-capped (cap * tanh(s / cap))
-// BEFORE the causal and sliding-window masks, masked scores set to -1e30,
+// BEFORE the causal, prefix-LM and sliding-window masks, masked scores set to -1e30,
 // an online softmax with a float32 running max m, sum l and accumulator,
 // and out = acc / max(l, 1e-30) written in q's dtype.  KV tiles that are
 // wholly masked for the q tile (past the causal frontier, older than the
 // window) are skipped, as the TPU kernel's pl.when guard skips them.  Unlike
 // the TPU kernel it needs no divisibility: a ragged sequence length is
 // masked (padded keys score -1e30, padded query rows are not written), and
-// Sk may differ from S.
+// Sk may differ from S (cross-attention).  The prefix-LM mask of the JAX
+// package's attention (`_mask` in src/repro/models/attention.py), which the
+// TPU kernel lacks, is here too: under `causal` a key is also allowed where
+// kpos < prefix_len, and the window still applies after that.  So a row's
+// causal frontier is max(qpos, prefix_len - 1), computed once: the masks
+// cost what they cost without a prefix.
 //
 // What bounds it on the H100: at serving lengths (S <= 256) a call is a few
 // MFLOP per head and sits near launch latency; from S ~ 1024 it is bound by
@@ -117,7 +122,7 @@ struct Params {
   int64_t ob, oh, os;  // output strides in elements
   int S, Sk, hd, rep, n_qtiles;
   float scale, softcap, inv_softcap;
-  int causal, window;
+  int causal, window, prefix_len;
 };
 
 // ------------------------------------------------------------ PTX helpers
@@ -352,9 +357,12 @@ flash_fwd(__grid_constant__ const CUtensorMap tq,
   const int q_last = min(q0 + kBQ - 1, p.S - 1);
   const int kvh = h / p.rep;
 
+  // the causal frontier of the tile's first row: every row sees the prefix
+  const int frontier = max(q0, p.prefix_len - 1);
+
   // live KV tiles for this q tile: [kt_lo, kt_lo + n_tiles)
   int kt_hi = (p.Sk + BK - 1) / BK;
-  if (p.causal) kt_hi = min(kt_hi, q_last / BK + 1);
+  if (p.causal) kt_hi = min(kt_hi, max(q_last, p.prefix_len - 1) / BK + 1);
   int kt_lo = 0;
   if (p.window > 0) {
     const int first = q0 - p.window + 1;  // oldest key any row may see
@@ -399,6 +407,8 @@ flash_fwd(__grid_constant__ const CUtensorMap tq,
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g;                  // rows r0 and r0 + 8
   const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
+  const int klim0 = max(qpos0, p.prefix_len - 1);  // the rows' causal frontiers
+  const int klim1 = max(qpos1, p.prefix_len - 1);
   constexpr int NS = BK / 2;                     // score entries per thread
   constexpr int NO = HDP / 2;                    // output entries per thread
   float sacc[NS];
@@ -478,7 +488,8 @@ flash_fwd(__grid_constant__ const CUtensorMap tq,
 
     // ---- scale, softcap, masks, online softmax (rows r0: e < 2, r0 + 8: e >= 2)
     const bool need_mask =
-        (k0 + BK > p.Sk) || (p.causal && k0 + BK - 1 > q0) ||
+        (k0 + BK > p.Sk) ||
+        (p.causal && k0 + BK - 1 > frontier) ||
         (p.window > 0 && q_last - k0 >= p.window);
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
@@ -491,8 +502,9 @@ flash_fwd(__grid_constant__ const CUtensorMap tq,
       for (int i = 0; i < NS; ++i) {
         const int kpos = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
         const int qpos = (i & 2) ? qpos1 : qpos0;
+        const int klim = (i & 2) ? klim1 : klim0;
         bool ok = kpos < p.Sk;
-        if (p.causal) ok = ok && kpos <= qpos;
+        if (p.causal) ok = ok && kpos <= klim;
         if (p.window > 0) ok = ok && (qpos - kpos < p.window);
         if (!ok) sacc[i] = kNegInf;
       }
@@ -674,7 +686,7 @@ extern "C" {
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                         void* o, int B, int H, int KVH, int S, int Sk, int hd,
                         const int64_t* strides, float scale, int causal,
-                        int window, float softcap, int width, int tile_k,
+                        int window, int prefix_len, float softcap, int width, int tile_k,
                         int stages, int smem, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (KVH <= 0 || H % KVH != 0 || hd <= 0 || hd > width || Sk <= 0)
@@ -702,6 +714,7 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   p.inv_softcap = softcap > 0.f ? 1.f / softcap : 0.f;
   p.causal = causal;
   p.window = window;
+  p.prefix_len = prefix_len;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
     if (width == 64 && tile_k == 64 && stages == 3)

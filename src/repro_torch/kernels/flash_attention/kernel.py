@@ -7,11 +7,16 @@ Takes the TPU kernel's (b, heads, S, hd) view, with any (batch, head, seq)
 strides that are multiples of 16 bytes and a unit-stride head dim, so the
 model's (b, S, heads, hd) tensors pass as transposed views with no copy; the
 output is allocated in the model's layout and returned as the matching view.
-Unlike the TPU kernel it accepts any S (ragged tails are masked).
+Unlike the TPU kernel it accepts any S (ragged tails are masked), a key
+length Sk other than S (cross-attention) and the prefix-LM mask of the JAX
+package's attention (``prefix_len``: under ``causal`` a key before it is
+seen by every query).
 
 ``launch_plan`` is the kernel's launch plan in plain Python (instantiated
-width, slabs, tile rows, stages, grid, shared memory), so that the CPU tests
-reach it; the launcher refuses a plan that differs from its instantiations.
+width, slabs, tile rows, stages, grid, shared memory), and ``live_tiles`` /
+``tile_needs_mask`` its walk over the key tiles of one q tile, so that the
+CPU tests reach them; the launcher refuses a plan that differs from its
+instantiations.
 """
 
 from __future__ import annotations
@@ -101,6 +106,30 @@ def launch_plan(dtype: torch.dtype, head_dim: int, *, batch: int = 1, heads: int
     raise ValueError(f"head dim {head_dim}: no tiling fits {SMEM_PER_BLOCK} bytes")
 
 
+def live_tiles(q0: int, q_last: int, Sk: int, tile_k: int, *, causal: bool,
+               window: int, prefix_len: int) -> range:
+    """The key tiles the kernel walks for the q tile of rows ``q0 ..
+    q_last``: up to the last row's causal frontier, which the prefix moves
+    to at least ``prefix_len - 1``, and from the oldest key the window lets
+    the first row see."""
+    hi = -(-Sk // tile_k)
+    if causal:
+        hi = min(hi, max(q_last, prefix_len - 1) // tile_k + 1)
+    lo = max(q0 - window + 1, 0) // tile_k if window > 0 else 0
+    return range(lo, max(hi, lo))
+
+
+def tile_needs_mask(k0: int, q0: int, q_last: int, Sk: int, tile_k: int, *,
+                    causal: bool, window: int, prefix_len: int) -> bool:
+    """Whether the kernel masks the scores of the key tile at ``k0`` element
+    by element: it holds a padded key, a key past the first row's causal
+    frontier (max(q0, prefix_len - 1)), or a key outside some row's
+    window."""
+    return (k0 + tile_k > Sk
+            or (causal and k0 + tile_k - 1 > max(q0, prefix_len - 1))
+            or (window > 0 and q_last - k0 >= window))
+
+
 def alignment_problem(name: str, data_ptr: int, shape: Sequence[int],
                       strides: Sequence[int], itemsize: int) -> Optional[str]:
     """Why TMA cannot read a (b, heads, seq, hd) tensor, or None: the head
@@ -128,7 +157,7 @@ def _fn():
         fn = _build.load("flash_attention").flash_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p,
-                       ctypes.c_float, i, i, ctypes.c_float, i, i, i, i, p]
+                       ctypes.c_float, i, i, i, ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn_cache.append(fn)
     return _fn_cache[0]
@@ -143,6 +172,7 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors; returns (b, nh, S, hd)."""
     dev = require_cuda("flash_attention", q, k, v)
@@ -175,7 +205,8 @@ def flash_attention(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    out.data_ptr(), b, nh, nkv, S, Sk, hd, strides,
-                   float(scale), int(causal), int(window), float(softcap),
+                   float(scale), int(causal), int(window), int(prefix_len),
+                   float(softcap),
                    plan.width, plan.tile_k, plan.stages, plan.smem_bytes, stream)
     if rc in _ERRORS:
         raise RuntimeError(f"flash_attention: {_ERRORS[rc]} (error {rc})")

@@ -12,16 +12,18 @@ from .ref import attention_ref
 
 def flash_attention_op(
     q: torch.Tensor,  # (b, s, nh, hd)
-    k: torch.Tensor,  # (b, s, nkv, hd)
+    k: torch.Tensor,  # (b, sk, nkv, hd)
     v: torch.Tensor,
     *,
     scale: float,
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
     if all_on_cpu(q, k, v):
         return attention_ref(qt, kt, vt, **kw).transpose(1, 2)
     return flash_attention(qt, kt, vt, **kw).transpose(1, 2)

@@ -1,4 +1,6 @@
-"""Plain PyTorch version of the flash-attention kernel (O(S²) memory)."""
+"""Plain PyTorch version of the flash-attention kernel (O(S·Sk) memory),
+with the masks of the JAX package's attention (``_mask`` in
+``repro.models.attention``): causal, the prefix-LM prefix and the window."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ def attention_ref(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    prefix_len: int = 0,
 ) -> torch.Tensor:
     b, nh, S, hd = q.shape
     _, nkv, Sk, _ = k.shape
@@ -28,7 +31,7 @@ def attention_ref(
     kp = torch.arange(Sk, device=q.device)[None, :]
     allowed = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
     if causal:
-        allowed = allowed & (kp <= qp)
+        allowed = allowed & ((kp <= qp) | (kp < prefix_len))
     if window > 0:
         allowed = allowed & (qp - kp < window)
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))

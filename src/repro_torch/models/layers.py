@@ -1,10 +1,12 @@
 """Shared primitive layers as tensor functions: norms, activations, softcap,
-RoPE, the (gated) MLP.  Numerics follow ``repro.models.layers``."""
+RoPE, whisper's sinusoidal positions, the (gated) MLP.  Numerics follow
+``repro.models.layers``."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,6 +74,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal embeddings, (seq, d_model)."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    inv = 1.0 / (10000 ** (dim / max(1, d_model // 2 - 1)))
+    ang = pos * inv
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
 
 
 # ----------------------------------------------------------------------- MLP

@@ -1,20 +1,19 @@
-"""The decoder-only LM (dense, MoE, SSM and hybrid) as tensor functions over
-a nested dict of parameters.
+"""The LM backbones (dense, MoE, SSM, hybrid, encoder-decoder and the VLM
+prefix-LM) as tensor functions over a nested dict of parameters.
 
-Port of the decoder paths of ``repro.models.transformer``: ``init_layer``
-(attention or the mamba mixer, then an MLP, the MoE FFN or none),
-``init_params``,
-``apply_layer`` (full sequence, prefill with ``make_cache``, one decode
-token with ``decode``) and ``apply_stack`` as a loop over the leading
-``n_repeat`` axis of the stacked macro-block parameters and caches.
-Parameter paths, shapes and dtypes are the JAX package's exactly
-(``blocks/pos{i}/...`` stacked over ``n_repeat``), so both packages'
-snapshots share chunk digests.
+Port of ``repro.models.transformer``: ``init_layer`` (attention or the
+mamba mixer, whisper's cross-attention block, then an MLP, the MoE FFN or
+none), ``init_params``, ``apply_layer`` (full sequence, prefill with
+``make_cache``, one decode token with ``decode``) and ``apply_stack`` as a
+loop over the leading ``n_repeat`` axis of the stacked macro-block
+parameters and caches.  Parameter paths, shapes and dtypes are the JAX
+package's exactly (``blocks/pos{i}/...`` stacked over ``n_repeat``; for
+the encoder-decoder also ``enc/blocks`` and ``enc/final_norm``), so both
+packages' snapshots share chunk digests.
 
 The models are functional on purpose: the serving worker hands a different
 restored tree (zero-copy pool shares plus patched leaves) to every
-invocation.  The encoder-decoder family (whisper) is a later slice of the
-port and raises :class:`NotImplementedError` naming its ROADMAP item.
+invocation.
 """
 
 from __future__ import annotations
@@ -41,6 +40,10 @@ Maker = Callable[..., torch.Tensor]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: the layer of whisper's encoder and decoder stacks (the decoder's with the
+#: cross-attention block)
+ENC_DEC_KINDS = (LayerKind("attn", "mlp"),)
+
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
@@ -49,11 +52,6 @@ def torch_dtype(name: str) -> torch.dtype:
 def unsupported(what: str, roadmap: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (ROADMAP.md: {roadmap})")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise unsupported("encoder-decoder (whisper)", "enc-dec / VLM / gemma-2 slice")
 
 
 # ---------------------------------------------------------------------------
@@ -68,8 +66,8 @@ def _norm_param(cfg: ModelConfig, make: Maker) -> Dict[str, torch.Tensor]:
             "bias": make((D,), torch.float32, "zeros")}
 
 
-def init_layer(cfg: ModelConfig, kind: LayerKind, make: Maker) -> PyTree:
-    _check_supported(cfg)
+def init_layer(cfg: ModelConfig, kind: LayerKind, make: Maker, *,
+               cross: bool = False) -> PyTree:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = torch_dtype(cfg.dtype)
     p: Dict[str, Any] = {"ln1": _norm_param(cfg, make)}
@@ -91,6 +89,12 @@ def init_layer(cfg: ModelConfig, kind: LayerKind, make: Maker) -> PyTree:
         p["D"] = make((nh,), f32, "ones")
         p["gate_norm"] = make((d_in,), f32, "zeros")
         p["w_out"] = make((d_in, D), dt, "normal")
+    if cross:  # whisper's decoder: attention over the encoder's states
+        p["ln_cross"] = _norm_param(cfg, make)
+        p["cq"] = make((D, H, hd), dt, "normal")
+        p["ck"] = make((D, KV, hd), dt, "normal")
+        p["cv"] = make((D, KV, hd), dt, "normal")
+        p["co"] = make((H, hd, D), dt, "normal")
     if kind.ffn != "none":
         p["ln2"] = _norm_param(cfg, make)
         if kind.ffn == "moe":  # stacked over the experts; the router float32, as in JAX
@@ -114,8 +118,14 @@ def _stack(trees) -> PyTree:
     return torch.stack(trees)
 
 
+def _stack_layers(cfg: ModelConfig, kinds, n_repeat: int, make: Maker, *,
+                  cross: bool = False) -> PyTree:
+    return {f"pos{i}": _stack([init_layer(cfg, kind, make, cross=cross)
+                               for _ in range(n_repeat)])
+            for i, kind in enumerate(kinds)}
+
+
 def build_params(cfg: ModelConfig, make: Maker) -> PyTree:
-    _check_supported(cfg)
     plan = blocks_mod.build_plan(cfg)
     dt = torch_dtype(cfg.dtype)
     params: Dict[str, Any] = {
@@ -124,10 +134,13 @@ def build_params(cfg: ModelConfig, make: Maker) -> PyTree:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": make((cfg.d_model, cfg.vocab_size), dt, "normal")}
-    params["blocks"] = {
-        f"pos{i}": _stack([init_layer(cfg, kind, make) for _ in range(plan.n_repeat)])
-        for i, kind in enumerate(plan.kinds)
-    }
+    if cfg.is_encoder_decoder:
+        params["enc"] = {"blocks": _stack_layers(cfg, ENC_DEC_KINDS, cfg.num_layers, make),
+                         "final_norm": _norm_param(cfg, make)}
+        params["blocks"] = _stack_layers(cfg, ENC_DEC_KINDS, cfg.num_decoder_layers, make,
+                                         cross=True)
+    else:
+        params["blocks"] = _stack_layers(cfg, plan.kinds, plan.n_repeat, make)
     return params
 
 
@@ -191,7 +204,8 @@ def _attend_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor, cache: PyTree,
 
 
 def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *,
-                positions: torch.Tensor, causal: bool = True,
+                positions: torch.Tensor, causal: bool = True, prefix_len: int = 0,
+                cross: bool = False, cross_states: Optional[torch.Tensor] = None,
                 cache: Optional[PyTree] = None, decode: bool = False,
                 pos: Optional[int] = None, make_cache: bool = False,
                 cache_len: int = 0) -> Tuple[torch.Tensor, Optional[PyTree]]:
@@ -200,8 +214,13 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
     ``decode`` runs one token at ``pos`` against ``cache`` (this layer's
     slice), which it updates in place and returns.  ``make_cache`` returns
     the layer's new cache from a full sequence: the rotated k and v padded
-    to ``cache_len``, or the mamba mixer's conv and SSM state."""
-    _check_supported(cfg)
+    to ``cache_len``, or the mamba mixer's conv and SSM state.  Under
+    ``causal`` the first ``prefix_len`` positions are seen by every query
+    (the VLM prefix-LM).  ``cross`` adds the cross-attention block after
+    the mixer: over ``cross_states`` (the encoder's output) in a full
+    sequence, whose k and v ``make_cache`` keeps unpadded as ``ck`` and
+    ``cv``; over the cached ``ck`` and ``cv`` in ``decode`` (JAX passes a
+    sentinel ``cross_states`` there instead of the flag)."""
     new_cache = None
     # the residual stream h may be f32 (carry precision); compute in cfg dtype
     cdt = torch_dtype(cfg.dtype) if h.dtype == torch.float32 else h.dtype
@@ -219,7 +238,8 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
                 q = apply_rope(q, positions, cfg.rope_theta)
                 k = apply_rope(k, positions, cfg.rope_theta)
             attn = flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
-                                      window=window, softcap=cfg.attn_logit_softcap)
+                                      window=window, softcap=cfg.attn_logit_softcap,
+                                      prefix_len=prefix_len)
             if make_cache:
                 pad = cache_len - k.shape[1]
                 if pad < 0:
@@ -237,6 +257,19 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             new_cache = cache
         elif make_cache:
             new_cache = mcache
+    if cross:
+        xc = apply_norm(h, p["ln_cross"], cfg.norm).to(cdt)
+        q = torch.einsum("bld,dhk->blhk", xc, p["cq"])
+        if decode:  # every encoder position: pos = enc_len - 1
+            ck, cv = cache["ck"], cache["cv"]
+            attn = decode_attention(q, ck, cv, ck.shape[1] - 1, scale=_scale(cfg))
+        else:
+            ck = torch.einsum("bld,dgk->blgk", cross_states, p["ck"])
+            cv = torch.einsum("bld,dgk->blgk", cross_states, p["cv"])
+            attn = flash_attention_op(q, ck, cv, scale=_scale(cfg), causal=False)
+            if make_cache:
+                new_cache.update(ck=ck, cv=cv)
+        h = h + torch.einsum("blhk,hkd->bld", attn, p["co"])
     if kind.ffn != "none":
         x2 = apply_norm(h, p["ln2"], cfg.norm).to(cdt)
         if kind.ffn == "moe":
@@ -265,7 +298,8 @@ def _index(tree: PyTree, r: int) -> PyTree:
 
 
 def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor, *,
-                positions: torch.Tensor, causal: bool = True,
+                positions: torch.Tensor, causal: bool = True, prefix_len: int = 0,
+                cross: bool = False, cross_states: Optional[torch.Tensor] = None,
                 cache: Optional[PyTree] = None, decode: bool = False,
                 pos: Optional[int] = None, make_cache: bool = False,
                 cache_len: int = 0) -> Tuple[torch.Tensor, Optional[PyTree]]:
@@ -283,8 +317,9 @@ def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor,
         for i, kind in enumerate(kinds):
             c_i = _index(cache[f"pos{i}"], r) if decode else None
             h, nc = apply_layer(cfg, kind, bp[f"pos{i}"], h, positions=positions,
-                                causal=causal, cache=c_i, decode=decode, pos=pos,
-                                make_cache=make_cache, cache_len=cache_len)
+                                causal=causal, prefix_len=prefix_len, cross=cross,
+                                cross_states=cross_states, cache=c_i, decode=decode,
+                                pos=pos, make_cache=make_cache, cache_len=cache_len)
             if make_cache and nc is not None:
                 slot = caches.setdefault(f"pos{i}", {})
                 for leaf, t in nc.items():

@@ -55,19 +55,29 @@ def test_patch_add_bit_exact(cuda, dtype):
     assert torch.equal(out.view(torch.uint8), ref.view(torch.uint8))
 
 
-# (b, nh, nkv, S, hd, causal, window, softcap)
+# (b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len)
 FLASH_CASES = {
-    "mha_causal": (2, 4, 4, 128, 64, True, 0, 0.0),
-    "bidirectional_ragged": (1, 2, 2, 77, 80, False, 0, 0.0),
-    "gqa_4to1": (1, 8, 2, 64, 32, True, 0, 0.0),
-    "mqa": (2, 4, 1, 37, 32, True, 0, 0.0),
-    "window_16": (1, 4, 4, 128, 16, True, 16, 0.0),
-    "softcap_20": (1, 4, 2, 64, 32, True, 0, 20.0),
-    "head_dim_256": (1, 2, 1, 40, 256, True, 0, 0.0),
-    "gqa_4to1_hd128_s1024": (1, 8, 2, 1024, 128, True, 0, 0.0),
-    "mqa_hd256_s1024": (1, 8, 1, 1024, 256, True, 0, 0.0),
-    "single_token": (2, 4, 2, 1, 64, True, 0, 0.0),
-    "window_crosses_tile_ragged": (1, 4, 2, 200, 64, True, 48, 0.0),
+    "mha_causal": (2, 4, 4, 128, 128, 64, True, 0, 0.0, 0),
+    "bidirectional_ragged": (1, 2, 2, 77, 77, 80, False, 0, 0.0, 0),
+    "gqa_4to1": (1, 8, 2, 64, 64, 32, True, 0, 0.0, 0),
+    "mqa": (2, 4, 1, 37, 37, 32, True, 0, 0.0, 0),
+    "window_16": (1, 4, 4, 128, 128, 16, True, 16, 0.0, 0),
+    "softcap_20": (1, 4, 2, 64, 64, 32, True, 0, 20.0, 0),
+    "head_dim_256": (1, 2, 1, 40, 40, 256, True, 0, 0.0, 0),
+    "gqa_4to1_hd128_s1024": (1, 8, 2, 1024, 1024, 128, True, 0, 0.0, 0),
+    "mqa_hd256_s1024": (1, 8, 1, 1024, 1024, 256, True, 0, 0.0, 0),
+    "single_token": (2, 4, 2, 1, 1, 64, True, 0, 0.0, 0),
+    "window_crosses_tile_ragged": (1, 4, 2, 200, 200, 64, True, 48, 0.0, 0),
+    # the prefix-LM mask: a prefix that ends mid-tile, paligemma's MQA at
+    # hd 256 over 256 patches, a prefix longer than S, one with a window
+    "prefix_ragged": (1, 4, 2, 200, 200, 64, True, 0, 0.0, 77),
+    "prefix_hd256_mqa": (1, 8, 1, 512, 512, 256, True, 0, 0.0, 256),
+    "prefix_past_s": (1, 4, 2, 50, 50, 32, True, 0, 0.0, 90),
+    "prefix_window": (1, 4, 4, 200, 200, 64, True, 40, 0.0, 100),
+    # cross-attention: whisper-small's decoder over 1500 frames
+    "cross_s64_sk1500": (1, 12, 12, 64, 1500, 64, False, 0, 0.0, 0),
+    "cross_s448_sk1500": (1, 12, 12, 448, 1500, 64, False, 0, 0.0, 0),
+    "cross_ragged_sk_lt_s": (2, 4, 2, 130, 33, 32, False, 0, 0.0, 0),
 }
 
 
@@ -75,11 +85,12 @@ FLASH_CASES = {
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_matches_plain(cuda, name, dtype):
     """f32 2e-5 and bf16 2e-2, as tests/test_kernels.py holds the TPU kernel."""
-    b, nh, nkv, S, hd, causal, window, softcap = FLASH_CASES[name]
+    b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len = FLASH_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(2)
-    q, k, v = (torch.randn((b, S, h, hd), generator=g, device=cuda).to(dtype)
-               for h in (nh, nkv, nkv))
-    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=softcap)
+    q, k, v = (torch.randn((b, n, h, hd), generator=g, device=cuda).to(dtype)
+               for n, h in ((S, nh), (Sk, nkv), (Sk, nkv)))
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
     before = tflash.launches.value
     out = tflash.flash_attention_op(q, k, v, **kw)
     assert tflash.launches.value == before + 1
@@ -460,11 +471,13 @@ def test_decode_int8_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.parametrize("name", ["stablelm-3b", "mamba2-780m", "olmoe-1b-7b",
-                                  "grok-1-314b", "jamba-v0.1-52b"])
+                                  "grok-1-314b", "jamba-v0.1-52b", "whisper-small",
+                                  "paligemma-3b"])
 def test_prefill_decode_on_cuda_matches_cpu(cuda, name):
     """The reduced model in float32: prefill (flash or ssd_scan on the
-    card) and three decode steps against the same steps on the CPU; 1e-4,
-    summation order only."""
+    card; whisper over 24 frame embeddings, paligemma after its 8 patch
+    embeddings) and three decode steps against the same steps on the CPU;
+    1e-4, summation order only."""
     from repro_torch.convert import params_from_flat, params_to_flat
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     cfg = reduced(get_config(name))
@@ -473,13 +486,19 @@ def test_prefill_decode_on_cuda_matches_cpu(cuda, name):
     params_cpu = params_from_flat(params_to_flat(params), "cpu", template=model.param_shapes())
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 35), dtype=np.int32))
-    prefill, serve = make_prefill_step(model, 48), make_serve_step(model)
-    got, cache = prefill(params, {"tokens": toks[:, :32].to(cuda)})
-    want, cache_cpu = prefill(params_cpu, {"tokens": toks[:, :32]})
+    batch = {"tokens": toks[:, :32]}
+    n_prefix = 24 if cfg.is_encoder_decoder else cfg.num_prefix_tokens
+    if n_prefix:
+        batch["prefix_embeds"] = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (2, n_prefix, cfg.d_model)).astype(np.float32) * 0.02)
+    offset = 0 if cfg.is_encoder_decoder else cfg.num_prefix_tokens
+    prefill, serve = make_prefill_step(model, 48 + offset), make_serve_step(model)
+    got, cache = prefill(params, {k: v.to(cuda) for k, v in batch.items()})
+    want, cache_cpu = prefill(params_cpu, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     for pos in range(32, 35):
-        got, cache = serve(params, cache, toks[:, pos].to(cuda), pos)
-        want, cache_cpu = serve(params_cpu, cache_cpu, toks[:, pos], pos)
+        got, cache = serve(params, cache, toks[:, pos].to(cuda), pos + offset)
+        want, cache_cpu = serve(params_cpu, cache_cpu, toks[:, pos], pos + offset)
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 

@@ -39,19 +39,25 @@ from repro_torch.models.ssm import conv_step, ssd_decode_step  # noqa: E402
 F32 = dict(rtol=2e-5, atol=2e-5)    # f32, summation order only
 MODEL = dict(rtol=1e-4, atol=1e-4)  # a whole f32 model, as test_torch_models.py
 
-# reduced configurations: MHA + LayerNorm, GQA, local/global with both
-# softcaps, the workload model at full width, the SSM, MoE (silu and gelu;
-# capacity factor 8.0, drop-free) and the hybrid
+# reduced configurations: MHA + LayerNorm, GQA, MQA with scaled
+# embeddings, local/global with both softcaps, the workload model at full
+# width, the SSM, MoE (silu and gelu; capacity factor 8.0, drop-free), the
+# hybrid, the encoder-decoder (over stub frames) and the VLM prefix-LM
+# (after stub patches): with faas-bench, all ten ARCHS of configs/
 ARCHS = [
     ("stablelm-3b", True),
     ("mistral-nemo-12b", True),
+    ("gemma-2b", True),
     ("gemma2-27b", True),
     ("faas-bench", False),
     ("mamba2-780m", True),
     ("olmoe-1b-7b", True),
     ("grok-1-314b", True),
     ("jamba-v0.1-52b", True),
+    ("whisper-small", True),
+    ("paligemma-3b", True),
 ]
+N_FRAMES = 16  # whisper's stub frames, as tests/test_models.py's TestArchSmoke
 
 
 def _t(a, dtype=torch.float32):
@@ -149,6 +155,34 @@ def _tokens(vocab, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s), dtype=np.int32)
 
 
+def _prefix(cfg, b, seed=0):
+    """Stub frame (encoder-decoder) or patch (VLM) embeddings, normal x
+    0.02 as in tests/test_models.py, or None for the other families."""
+    n = N_FRAMES if cfg.is_encoder_decoder else cfg.num_prefix_tokens
+    if not n:
+        return None
+    rng = np.random.default_rng(seed + 100)
+    return (rng.standard_normal((b, n, cfg.d_model)) * 0.02).astype(np.float32)
+
+
+def _offset(cfg) -> int:
+    """The decode position of text token 0: after a VLM prefix."""
+    return 0 if cfg.is_encoder_decoder else cfg.num_prefix_tokens
+
+
+def _enc_len(cfg) -> int:
+    return N_FRAMES if cfg.is_encoder_decoder else 0
+
+
+def _jbatch(toks, pe):
+    return JBatch(tokens=jnp.asarray(toks), prefix_embeds=None if pe is None else jnp.asarray(pe))
+
+
+def _batch(toks, pe):
+    return Batch(tokens=torch.from_numpy(toks),
+                 prefix_embeds=None if pe is None else torch.from_numpy(pe))
+
+
 def _assert_cache_close(got, want, tol):
     """Every leaf of the port's cache against JAX's, by flat path."""
     g = params_to_flat(got)
@@ -168,8 +202,12 @@ def test_prefill_matches_jax(name, reduce):
     """Last-token logits (b, 1, V) and every cache leaf, f32 → 1e-4."""
     jm, jparams, tm, params = _models(name, reduce)
     toks = _tokens(jm.cfg.vocab_size, 2, PROMPT)
-    want_l, want_c = jm.prefill(jparams, JBatch(tokens=jnp.asarray(toks)), CACHE_LEN)
-    got_l, got_c = make_prefill_step(tm, CACHE_LEN)(params, {"tokens": torch.from_numpy(toks)})
+    pe = _prefix(tm.cfg, 2)
+    want_l, want_c = jm.prefill(jparams, _jbatch(toks, pe), CACHE_LEN)
+    batch = {"tokens": torch.from_numpy(toks)}
+    if pe is not None:
+        batch["prefix_embeds"] = torch.from_numpy(pe)
+    got_l, got_c = make_prefill_step(tm, CACHE_LEN)(params, batch)
     assert tuple(got_l.shape) == (2, 1, jm.cfg.vocab_size)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **MODEL)
     _assert_cache_close(got_c, want_c, MODEL)
@@ -182,15 +220,16 @@ def test_decode_step_from_jax_cache_matches_jax(name, reduce):
     package: logits and the updated cache, f32 → 1e-4."""
     jm, jparams, tm, params = _models(name, reduce, seed=1)
     toks = _tokens(jm.cfg.vocab_size, 2, PROMPT + 2, seed=1)
-    _, jcache = jm.prefill(jparams, JBatch(tokens=jnp.asarray(toks[:, :PROMPT])), CACHE_LEN)
+    pe, off = _prefix(tm.cfg, 2, seed=1), _offset(tm.cfg)
+    _, jcache = jm.prefill(jparams, _jbatch(toks[:, :PROMPT], pe), CACHE_LEN)
     flat = flatten_pytree(jax.tree.map(np.asarray, jcache))
-    template = tm.init_cache(2, CACHE_LEN, device="meta")
+    template = tm.init_cache(2, CACHE_LEN, enc_len=_enc_len(tm.cfg), device="meta")
     cache = params_from_flat(flat, "cpu", template=template)
     serve = make_serve_step(tm)
     for pos in (PROMPT, PROMPT + 1):
         want, jcache = jm.decode_step(jparams, jcache, jnp.asarray(toks[:, pos]),
-                                      jnp.asarray(pos, jnp.int32))
-        got, cache = serve(params, cache, torch.from_numpy(toks[:, pos]), pos)
+                                      jnp.asarray(pos + off, jnp.int32))
+        got, cache = serve(params, cache, torch.from_numpy(toks[:, pos]), pos + off)
         assert tuple(got.shape) == (2, jm.cfg.vocab_size)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL)
     _assert_cache_close(cache, jcache, MODEL)
@@ -201,26 +240,30 @@ def test_prefill_then_decode_matches_forward(name, reduce):
     """The port alone (the analogue of tests/test_models.py's
     test_prefill_decode_matches_forward): prefill s - 3 tokens, decode the
     last three teacher-forced; each step's logits equal the forward's row,
-    f32 → 1e-4."""
+    f32 → 1e-4.  A VLM prefix shifts the decode positions by its length
+    (pos = s - 1 + prefix, as there)."""
     _, _, tm, params = _models(name, reduce, seed=2)
     s = PROMPT
-    toks = torch.from_numpy(_tokens(tm.cfg.vocab_size, 2, s, seed=2))
-    full = tm.logits(params, Batch(tokens=toks))
-    logits, cache = tm.prefill(params, Batch(tokens=toks[:, :s - 3]), CACHE_LEN)
+    np_toks = _tokens(tm.cfg.vocab_size, 2, s, seed=2)
+    pe, off = _prefix(tm.cfg, 2, seed=2), _offset(tm.cfg)
+    toks = torch.from_numpy(np_toks)
+    full = tm.logits(params, _batch(np_toks, pe))
+    logits, cache = tm.prefill(params, _batch(np_toks[:, :s - 3], pe), CACHE_LEN)
     np.testing.assert_allclose(logits[:, 0].numpy(), full[:, s - 4].numpy(), **MODEL)
     for pos in range(s - 3, s):
-        logits, cache = tm.decode_step(params, cache, toks[:, pos], pos)
+        logits, cache = tm.decode_step(params, cache, toks[:, pos], pos + off)
         np.testing.assert_allclose(logits.numpy(), full[:, pos].numpy(), **MODEL)
 
 
 @pytest.mark.parametrize("name,reduce", ARCHS)
 def test_init_cache_layout_matches_jax(name, reduce):
     jm, _, tm, _ = _models(name, reduce)
+    enc = _enc_len(tm.cfg)
     want = {(p, a.shape, str(a.dtype)) for p, a in flatten_pytree(
-        jax.tree.map(np.asarray, jm.init_cache(2, CACHE_LEN))).items()}
-    meta = tm.init_cache(2, CACHE_LEN, device="meta")
+        jax.tree.map(np.asarray, jm.init_cache(2, CACHE_LEN, enc_len=enc))).items()}
+    meta = tm.init_cache(2, CACHE_LEN, enc_len=enc, device="meta")
     got = {(p, a.shape, str(a.dtype)) for p, a in params_to_flat(
-        tm.init_cache(2, CACHE_LEN, device="cpu")).items()}
+        tm.init_cache(2, CACHE_LEN, device="cpu", enc_len=enc)).items()}
     assert got == want
     assert all(t.device.type == "meta" for d in meta.values() for t in d.values())
     bf16 = tm.init_cache(1, 8, "bfloat16", device="meta")
@@ -287,23 +330,8 @@ def test_decode_position_outside_the_cache_raises():
         tm.prefill(params, Batch(tokens=toks), 4)
 
 
-@pytest.mark.parametrize("name,roadmap", [
-    ("whisper-small", "enc-dec"),
-])
-def test_unported_families_raise_in_cache_and_prefill(name, roadmap):
-    tm = build_model(reduced(get_config(name)))
-    with pytest.raises(NotImplementedError, match=roadmap):
-        tm.init_cache(1, 8, device="meta")
-    with pytest.raises(NotImplementedError, match=roadmap):
-        tm.prefill({}, Batch(tokens=torch.zeros((1, 4), dtype=torch.int32)), 8)
-
-
-def test_vlm_prefix_and_training_steps_raise():
-    _, _, tm, params = _models("stablelm-3b", True)
-    batch = Batch(tokens=torch.zeros((1, 4), dtype=torch.int32),
-                  prefix_embeds=torch.zeros((1, 2, tm.cfg.d_model)))
-    with pytest.raises(NotImplementedError, match="VLM"):
-        tm.prefill(params, batch, 8)
+def test_training_steps_raise():
+    tm = build_model(reduced(get_config("stablelm-3b")))
     for fn in (make_train_step, make_train_state):
         with pytest.raises(NotImplementedError, match="item 9"):
             fn(tm)

@@ -6,11 +6,16 @@ card.  What can be checked here is its arithmetic and its launch plan:
 - an emulation in plain PyTorch of what the kernel computes, tile by tile:
   float32 products in 3xTF32 (each operand split into hi and lo parts whose
   low 13 mantissa bits are zero, hi.hi + hi.lo + lo.hi), bfloat16 products
-  with P rounded to bf16 before P.V, the online softmax over key tiles of
-  the plan's size.  It is held against the Pallas kernel in interpret mode
-  and against the JAX plain version at the kernel tolerances (f32 2e-5, bf16
-  2e-2), and single-term TF32 must fail 2e-5: that is why the f32 path
-  splits;
+  with P rounded to bf16 before P.V, the online softmax over the key tiles
+  of the plan's size that the kernel's walk visits for each q tile,
+  masked only where the kernel masks.  It is held against the Pallas
+  kernel in interpret mode and against the JAX plain versions at the
+  kernel tolerances (f32 2e-5, bf16 2e-2), with the prefix-LM mask and
+  Sk != S against JAX's ``naive_attention``, and single-term TF32 must
+  fail 2e-5: that is why the f32 path splits;
+- the tile walk itself (``live_tiles``, ``tile_needs_mask``) over a grid
+  of lengths, prefixes and windows: no allowed key skipped, none left
+  unmasked;
 - the launch plan (``launch_plan``, ``alignment_problem``): every model
   configuration of the port, full and reduced, fits the card's shared
   memory, each plan is an instantiation of the kernel, and what TMA cannot
@@ -31,6 +36,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import attention_ref as jax_attention_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.models.attention import naive_attention as jax_naive_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
 from repro_torch.configs import get_config, list_archs, reduced  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     SMEM_PER_BLOCK,
@@ -38,6 +45,8 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     SMEM_RESERVED,
     alignment_problem,
     launch_plan,
+    live_tiles,
+    tile_needs_mask,
 )
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -61,41 +70,57 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, arith: str) -> torch.Tensor:
     return a @ b  # bf16 values: products exact in f32, f32 sums
 
 
-def emulate(q, k, v, *, scale, causal, window, softcap, arith):
+def emulate(q, k, v, *, scale, causal, window, softcap, arith, prefix_len=0):
     """The kernel's arithmetic on (b, nh, S, hd) float32 tensors (holding
-    bf16 values for ``arith="bf16"``): per key tile of the launch plan,
-    scores, softcap, masks, the online softmax in f32, P (rounded to bf16
-    for the bf16 path) times V."""
+    bf16 values for ``arith="bf16"``): per q tile of the launch plan, over
+    the key tiles its walk visits (``live_tiles``), scores, softcap, the
+    masks only on tiles the kernel masks (``tile_needs_mask``), the online
+    softmax in f32, P (rounded to bf16 for the bf16 path) times V."""
     b, nh, S, hd = q.shape
     nkv, Sk = k.shape[1], k.shape[2]
     dtype = torch.bfloat16 if arith == "bf16" else torch.float32
-    tile_k = launch_plan(dtype, hd).tile_k
+    plan = launch_plan(dtype, hd)
+    tile_k = plan.tile_k
+    walk = dict(causal=causal, window=window, prefix_len=prefix_len)
     kx, vx = (x.repeat_interleave(nh // nkv, dim=1) for x in (k, v))
-    m = torch.full((b, nh, S, 1), -1e30)
-    l = torch.zeros((b, nh, S, 1))
-    acc = torch.zeros((b, nh, S, hd))
-    qp = torch.arange(S)[:, None]
-    for k0 in range(0, Sk, tile_k):
-        kt, vt = kx[:, :, k0:k0 + tile_k], vx[:, :, k0:k0 + tile_k]
-        s = _matmul(q, kt.transpose(-1, -2), arith) * scale
-        if softcap > 0.0:
-            s = softcap * torch.tanh(s / softcap)
-        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
-        ok = torch.ones((S, kt.shape[2]), dtype=torch.bool)
-        if causal:
-            ok &= kp <= qp
-        if window > 0:
-            ok &= qp - kp < window
-        s = torch.where(ok, s, torch.full_like(s, -1e30))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        if arith == "bf16":
-            p = p.bfloat16().float()
-        acc = acc * alpha + _matmul(p, vt, arith)
-        m = m_new
-    return acc / l.clamp_min(1e-30)
+    out = torch.zeros((b, nh, S, hd))
+    for q0 in range(0, S, plan.tile_q):
+        q_last = min(q0 + plan.tile_q, S) - 1
+        qt = q[:, :, q0:q_last + 1]
+        rows = qt.shape[2]
+        m = torch.full((b, nh, rows, 1), -1e30)
+        l = torch.zeros((b, nh, rows, 1))
+        acc = torch.zeros((b, nh, rows, hd))
+        qp = torch.arange(q0, q_last + 1)[:, None]
+        for kt in live_tiles(q0, q_last, Sk, tile_k, **walk):
+            k0 = kt * tile_k
+            kb, vb = kx[:, :, k0:k0 + tile_k], vx[:, :, k0:k0 + tile_k]
+            s = _matmul(qt, kb.transpose(-1, -2), arith) * scale
+            if softcap > 0.0:
+                s = softcap * torch.tanh(s / softcap)
+            if tile_needs_mask(k0, q0, q_last, Sk, tile_k, **walk):
+                ok = _allowed(qp, torch.arange(k0, k0 + kb.shape[2])[None, :], **walk)
+                s = torch.where(ok, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if arith == "bf16":
+                p = p.bfloat16().float()
+            acc = acc * alpha + _matmul(p, vb, arith)
+            m = m_new
+        out[:, :, q0:q_last + 1] = acc / l.clamp_min(1e-30)
+    return out
+
+
+def _allowed(qp, kp, *, causal, window, prefix_len):
+    """JAX's ``_mask`` (``repro.models.attention``) over positions."""
+    ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool)
+    if causal:
+        ok &= (kp <= qp) | (kp < prefix_len)
+    if window > 0:
+        ok &= qp - kp < window
+    return ok
 
 
 # (b, nh, nkv, S, hd, causal, window, softcap, Pallas block): the Pallas
@@ -165,6 +190,115 @@ def test_emulated_kernel_matches_jax_ref_at_card_shapes(name, dtype):
     ref = jax_attention_ref(*(jnp.asarray(x) for x in xs), **kw)
     np.testing.assert_allclose(got, np.asarray(ref, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# tests/test_torch_cuda.py's prefix-LM and cross-attention cases, (b, nh,
+# nkv, S, Sk, hd, causal, window, softcap, prefix_len): held against JAX's
+# naive_attention, the oracle of the masks the model's attention applies
+MASK_CASES = {
+    "prefix_ragged": (1, 4, 2, 200, 200, 64, True, 0, 0.0, 77),
+    "prefix_hd256_mqa": (1, 8, 1, 512, 512, 256, True, 0, 0.0, 256),
+    "prefix_past_s": (1, 4, 2, 50, 50, 32, True, 0, 0.0, 90),
+    "prefix_window": (1, 4, 4, 200, 200, 64, True, 40, 0.0, 100),
+    "cross_s64_sk1500": (1, 12, 12, 64, 1500, 64, False, 0, 0.0, 0),
+    "cross_ragged_sk_lt_s": (2, 4, 2, 130, 33, 32, False, 0, 0.0, 0),
+}
+
+
+def _mask_inputs(name, dtype, seed=3):
+    b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len = MASK_CASES[name]
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal(s).astype(np.float32)
+          for s in ((b, nh, S, hd), (b, nkv, Sk, hd), (b, nkv, Sk, hd))]
+    if dtype == "bfloat16":
+        xs = [x.astype(ml_dtypes.bfloat16) for x in xs]
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    return xs, kw
+
+
+def _jax_naive(xs, kw):
+    """JAX's naive_attention in the kernel's (b, heads, S, hd) layout."""
+    q, k, v = (jnp.asarray(x).transpose(0, 2, 1, 3) for x in xs)
+    kw = dict(kw)
+    out = jax_naive_attention(q, k, v, logit_softcap=kw.pop("softcap"), **kw)
+    return np.asarray(out.transpose(0, 2, 1, 3), np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(MASK_CASES))
+def test_emulated_kernel_matches_jax_prefix_and_cross(name, dtype):
+    """The tile walk with a prefix or Sk != S drops no allowed key: the
+    emulation, which visits only the walk's tiles and masks only those it
+    flags, matches JAX at the kernel tolerances."""
+    xs, kw = _mask_inputs(name, dtype)
+    got = _emulated(xs, kw, dtype)
+    np.testing.assert_allclose(got, _jax_naive(xs, kw), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(MASK_CASES))
+def test_attention_ref_matches_jax_prefix_and_cross(name, dtype):
+    """The plain version with ``prefix_len`` and Sk != S against JAX's
+    naive_attention: float32 2e-5 (summation order); bf16 inputs 2e-2
+    (JAX rounds P to bf16 before P.V, the plain version keeps f32)."""
+    xs, kw = _mask_inputs(name, dtype)
+    tdt = _TORCH[dtype]
+    t = [torch.from_numpy(np.asarray(x, np.float32)).to(tdt) for x in xs]
+    got = attention_ref(*t, **kw)
+    assert got.dtype == tdt and tuple(got.shape) == xs[0].shape
+    np.testing.assert_allclose(got.float().numpy(), _jax_naive(xs, kw),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_prefix_reaches_past_the_causal_frontier():
+    """A key in the prefix is seen by every query, one after it only from
+    its own position on; without a prefix the same inputs give another
+    result."""
+    xs, kw = _mask_inputs("prefix_ragged", "float32")
+    t = [torch.from_numpy(x) for x in xs]
+    with_prefix = attention_ref(*t, **kw)
+    kw0 = dict(kw, prefix_len=0)
+    plain = attention_ref(*t, **kw0)
+    # rows at or past the prefix see the same keys either way
+    torch.testing.assert_close(with_prefix[:, :, 77:], plain[:, :, 77:])
+    assert not torch.allclose(with_prefix[:, :, :76], plain[:, :, :76], atol=1e-3)
+
+
+@pytest.mark.parametrize("tile_k", [32, 64])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_tile_walk_skips_no_allowed_key_and_masks_the_rest(tile_k, causal):
+    """Over a grid of (S, Sk, prefix, window), for every q tile of 64 rows:
+    each allowed (q, k) pair lies in a tile the walk visits, each
+    disallowed pair in a visited tile lies in one the kernel masks, and
+    every visited tile holds an allowed pair where every row has one (a
+    causal window over fewer keys than queries leaves rows with none).
+    The grid has prefixes that end mid-tile, on a tile edge and past S,
+    windows with a prefix, and key lengths other than S."""
+    checked = 0
+    for S in (1, 50, 64, 200):
+        for Sk in sorted({S, 33, 130}):
+            for prefix_len in (0, 1, 64, 77, 300):
+                for window in (0, 16, 40):
+                    walk = dict(causal=causal, window=window, prefix_len=prefix_len)
+                    allowed = _allowed(torch.arange(S)[:, None], torch.arange(Sk)[None, :],
+                                       **walk)
+                    for q0 in range(0, S, 64):
+                        q_last = min(q0 + 64, S) - 1
+                        rows = allowed[q0:q_last + 1]
+                        live = set(live_tiles(q0, q_last, Sk, tile_k, **walk))
+                        for kt in range(-(-Sk // tile_k)):
+                            block = rows[:, kt * tile_k:(kt + 1) * tile_k]
+                            where = (S, Sk, prefix_len, window, q0, kt)
+                            if kt not in live:
+                                assert not block.any(), where
+                                continue
+                            assert block.any() or not rows.any(1).all(), where
+                            if not block.all() or (kt + 1) * tile_k > Sk:
+                                assert tile_needs_mask(kt * tile_k, q0, q_last, Sk, tile_k,
+                                                       **walk), where
+                            checked += 1
+    assert checked > 400
 
 
 @pytest.mark.parametrize("name", sorted(PALLAS_CASES))

@@ -1,7 +1,8 @@
 """The port's dense, MoE, SSM and hybrid models against the JAX package's:
-the parameter template (paths, shapes, dtypes), logits from JAX-carried
-weights (the MoE families also at a capacity that drops tokens), the mamba
-mixer, the unported family, and the bfloat16 bit-pattern conversion."""
+the parameter template (paths, shapes, dtypes; the encoder-decoder and the
+VLM too), logits from JAX-carried weights (the MoE families also at a
+capacity that drops tokens), the mamba mixer, and the bfloat16 bit-pattern
+conversion."""
 
 import dataclasses
 
@@ -54,6 +55,8 @@ def _jax_template_set(name, reduce):
     ("mamba2-780m", False), ("mamba2-780m", True),
     ("olmoe-1b-7b", False), ("olmoe-1b-7b", True), ("grok-1-314b", False),
     ("grok-1-314b", True), ("jamba-v0.1-52b", False), ("jamba-v0.1-52b", True),
+    ("whisper-small", False), ("whisper-small", True),
+    ("paligemma-3b", False), ("paligemma-3b", True),
 ])
 def test_param_shapes_match_jax(name, reduce):
     cfg = get_config(name)
@@ -61,14 +64,6 @@ def test_param_shapes_match_jax(name, reduce):
     shapes = build_model(cfg).param_shapes()
     assert all(v.device.type == "meta" for v in jax.tree.leaves(shapes))
     assert _template_set(shapes) == _jax_template_set(name, reduce)
-
-
-@pytest.mark.parametrize("name,roadmap", [
-    ("whisper-small", "enc-dec"),
-])
-def test_unported_families_raise(name, roadmap):
-    with pytest.raises(NotImplementedError, match=roadmap):
-        build_model(reduced(get_config(name))).param_shapes()
 
 
 def test_mamba2_builds_and_its_decode_branch_raises():

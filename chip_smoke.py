@@ -94,13 +94,31 @@ Phases, each of which passes or makes the script exit non-zero:
    forward, finite logits, one flash launch per forward; then float32
    logits of every row against the CPU, routing compared first, where the
    experts' tanh gelu swapped for the exact one must fail;
-11. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
+11. training: the flash backward kernel (``flash_attention_bwd``) against
+   its plain version and against autograd through the plain forward in
+   float64 at faas-bench, stablelm-3b (bf16 at the train run's b 4 x S
+   1024, and f32), GQA 32:8, a gemma-2-style window 256 with softcap 50,
+   paligemma's prefix (bf16 and f32), whisper's encoder and its
+   cross-attention (f32 5e-5, bf16 2e-2 of each gradient's largest entry),
+   with controls that must fail (the causal mask dropped, the softcap's
+   1 - tanh^2 dropped, GQA without the sum over the group), two calls
+   bit-equal, device times beside the bound, the forward with and without
+   lse, and SDPA's backward by autograd; one float32 train step of
+   stablelm-3b at full width (2 layers, b 2 x S 256) against the CPU, where
+   attention's output detached must fail; 10 bf16 steps of it at b 4 x S
+   1024 through the ``Trainer`` with async checkpoints every 5 (counters
+   zeroed just before and read just after: 2 flash forwards and 2
+   backwards a step), and 10 float32 steps of faas-bench whole; crash at
+   step 17 and resume through ``python -m repro_torch.launch.train``, whose
+   resumed losses must equal an uninterrupted run's at rtol 1e-4; a mamba2
+   train step on the card must raise (no ``ssd_scan`` backward yet);
+12. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
 Then the ``{"kernels": [...]}`` summary (each kernel with its launches on
 the path named, and on every path), the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.
 
-About 6.5 minutes on one H100, the kernels' build included.
+About 7.5 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -814,6 +832,7 @@ def _counters():
 
     return {"snapshot_patch": snapshot_patch.launches,
             "flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
             "ssd_scan": ssd.launches,
             "decode_attention_int8": decode_attention.launches}
 
@@ -2023,6 +2042,401 @@ def phase_serve(ctx, torch, rt):
         fail(f"launch.serve: unexpected rows {rows}")
 
 
+# ------------------------------------------------------------------ phase 11
+
+def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
+                   causal=True, window=0, softcap=0.0, prefix_len=0, controls=(),
+                   q_scale=1.0):
+    """The backward kernel against its plain version and against autograd
+    through the plain forward in float64, from one seeded set of inputs;
+    two calls bit-equal; each named control (the plain formula with a fault)
+    must fail the same tolerance; ``q_scale`` scales q (scores of the
+    softcap's size, where it bends them).  Times: the kernel (CUDA graph), the
+    forward with and without lse, the plain backward, and SDPA's backward
+    by autograd (eager: events around one call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref, attention_ref,
+                                                     flash_attention, flash_attention_bwd)
+
+    dev = torch.device("cuda")
+    Sk = S if Sk is None else Sk
+    q, k, v = (torch.randn((b, n, h, hd), generator=gen, device=dev)
+               for n, h in ((S, nh), (Sk, nkv), (Sk, nkv)))
+    q, k, v = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype)
+    do = torch.randn((b, S, nh, hd), generator=gen, device=dev).to(dtype)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))  # the op's views
+    dot_c = dot.contiguous()
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    o, lse = flash_attention(qt, kt, vt, return_lse=True, **kw)
+    got = flash_attention_bwd(qt, kt, vt, o, dot_c, lse, **kw)
+    again = flash_attention_bwd(qt, kt, vt, o, dot_c, lse, **kw)
+    plain = attention_bwd_ref(qt, kt, vt, o, dot_c, lse, **kw)
+    x64 = [x.detach().double().requires_grad_(True) for x in (qt, kt, vt)]
+    oracle = torch.autograd.grad(attention_ref(*x64, **kw), x64, dot.double())
+    del x64
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        fail(f"flash_attention_bwd {label}: two calls differ")
+    dname = str(dtype).replace("torch.", "")
+    rel = 5e-5 if dname == "float32" else 2e-2
+
+    def worst(xs, refs):
+        """max over dq, dk, dv of max|x - ref| / max|ref|"""
+        return max(float((x.double() - r.double()).abs().max() / r.double().abs().max())
+                   for x, r in zip(xs, refs))
+
+    err_plain, err_oracle = worst(got, plain), worst(got, oracle)
+    if err_plain > rel or err_oracle > rel:
+        fail(f"flash_attention_bwd {label}: relative errors {err_plain} (plain) and "
+             f"{err_oracle} (float64 autograd) outside {rel}")
+    ctl = {}
+    for name in controls:
+        if name == "causal mask dropped":
+            bad = attention_bwd_ref(qt, kt, vt, o, dot_c, lse, **dict(kw, causal=False))
+        elif name == "softcap 1 - tanh^2 dropped":
+            bad = _bwd_without_softcap_factor(torch, qt, kt, vt, o, dot_c, lse, **kw)
+        elif name == "GQA without the sum over rep":
+            rep = nh // nkv
+            one = attention_bwd_ref(qt[:, ::rep], kt, vt, o[:, ::rep], dot_c[:, ::rep],
+                                    lse[:, ::rep].contiguous(), **kw)
+            bad = (plain[0], one[1], one[2])
+        ctl[name] = worst(bad, got)
+        if ctl[name] <= rel:
+            fail(f"flash_attention_bwd {label}: control '{name}' passed ({ctl[name]})")
+    # the bound: 5 products of the allowed pairs x hd (2 flops each) against
+    # the forward's 2; each input read once, each gradient written once
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(Sk, device=dev)[None, :]
+    allowed = torch.ones((S, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        allowed &= (kp <= qp) | (kp < prefix_len)
+    if window > 0:
+        allowed &= qp - kp < window
+    pairs = int(allowed.sum())
+    ops = 10.0 * b * nh * pairs * hd
+    nbytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) * q.element_size() \
+        + 4 * lse.numel()
+    peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    kernel_ms = device_ms(torch, [lambda: flash_attention_bwd(qt, kt, vt, o, dot_c, lse, **kw)],
+                          reps=10, per_graph=2)
+    fwd_ms = device_ms(torch, [lambda: flash_attention(qt, kt, vt, **kw)])
+    fwd_lse_ms = device_ms(torch, [lambda: flash_attention(qt, kt, vt, return_lse=True, **kw)])
+    plain_ms = device_ms(torch, [lambda: attention_bwd_ref(qt, kt, vt, o, dot_c, lse, **kw)],
+                         reps=5, per_graph=1)
+    library_ms = None
+    if softcap == 0.0:
+        rep = nh // nkv
+        ql, ke, ve = (x.detach().clone().requires_grad_(True) for x in
+                      (qt, kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)))
+        plain_causal = causal and prefix_len == 0 and Sk == S
+        mask = None if window == 0 and (plain_causal or not causal) else allowed
+        out = F.scaled_dot_product_attention(ql, ke, ve, attn_mask=mask,
+                                             is_causal=mask is None and causal, scale=kw["scale"])
+        library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+            out, (ql, ke, ve), dot, retain_graph=True), reps=10, warmup=2)
+        del out
+    case = {"kernel": "flash_attention_bwd", "case": label, "dtype": dname,
+            "b": b, "nh": nh, "nkv": nkv, "S": S, "Sk": Sk, "hd": hd, "causal": causal,
+            "window": window, "softcap": softcap, "prefix_len": prefix_len,
+            "max_abs_err": max(float((x.double() - r).abs().max())
+                               for x, r in zip(got, oracle)),
+            "rel_err_plain": err_plain, "rel_err_float64_autograd": err_oracle, "tol": rel,
+            "controls": ctl, "deterministic": True,
+            "ops": ops, "bytes": nbytes,
+            "ops_peak": "3xTF32, 495/3 TFLOP/s" if dname == "float32" else "bf16, 989 TFLOP/s",
+            "kernel_ms": kernel_ms,
+            "eager_ms": eager_ms(torch, lambda: flash_attention_bwd(qt, kt, vt, o, dot_c, lse,
+                                                                    **kw), reps=10, warmup=2),
+            "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "library": "SDPA backward, eager"}
+    ctx.cases.append(case)
+    emit(case)
+
+
+def _bwd_without_softcap_factor(torch, q, k, v, o, do, lse, *, scale, causal, window,
+                                softcap, prefix_len):
+    """``attention_bwd_ref`` with the softcap's 1 - tanh^2 left out of dS
+    (MHA or GQA; P from the capped scores, as the forward's lse has it):
+    the control that must fail."""
+    b, nh, S, hd = q.shape
+    nkv, Sk = k.shape[1], k.shape[2]
+    rep = nh // nkv
+    f = torch.float32
+    qr, g, orr = (x.reshape(b, nkv, rep, S, hd).to(f) for x in (q, do, o))
+    s = softcap * torch.tanh(torch.einsum("bgrqd,bgkd->bgrqk", qr, k.to(f)) * scale / softcap)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    allowed = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        allowed &= (kp <= qp) | (kp < prefix_len)
+    if window > 0:
+        allowed &= qp - kp < window
+    p = torch.where(allowed, torch.exp(s - lse.reshape(b, nkv, rep, S, 1)), 0.0)
+    ds = p * (torch.einsum("bgrqd,bgkd->bgrqk", g, v.to(f)) - (g * orr).sum(-1, keepdim=True))
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, k.to(f)) * scale
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds, qr) * scale
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p, g)
+    return dq.reshape(b, nh, S, hd), dk, dv
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev, copy=True)
+
+
+def _leaf_errs(np, got, want):
+    """per flat path: max|got - want| / max|want|"""
+    from repro_torch.convert import params_to_flat
+
+    g, w = params_to_flat(got), params_to_flat(want)
+    out = {}
+    for path, ref in w.items():
+        a, r = g[path].astype(np.float64), ref.astype(np.float64)
+        out[path] = float(np.abs(a - r).max() / max(np.abs(r).max(), 1e-30))
+    return out
+
+
+def _train_parity(ctx, torch):
+    """One float32 train step of stablelm-3b at full width (2 layers, b 2 x
+    S 256) on the card and on the CPU from the same state and batch."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_state, make_train_step, value_and_grad
+    from repro_torch.models import build_model, transformer
+    from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.optim import OptimizerConfig
+
+    cfg = dataclasses.replace(get_config("stablelm-3b"), num_layers=2, dtype="float32")
+    model = build_model(cfg)
+    # eps 1: the update is about lr * g, so updated parameters compare the
+    # step's arithmetic and not AdamW's sign-like first update of entries
+    # whose gradient is at float32 sum-order noise
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10, eps=1.0)
+    cpu = make_train_state(model, opt, 0, device="cpu")
+    gpu = _to_device(cpu, "cuda")
+    rng = np.random.default_rng(21)
+    tok = rng.integers(0, cfg.vocab_size, (2, 257), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]), "labels": torch.from_numpy(tok[:, 1:])}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    _, g_cpu = value_and_grad(model, cpu["params"], batch)
+    _, g_gpu = value_and_grad(model, gpu["params"], gbatch)
+    grad_errs = _leaf_errs(np, g_gpu, g_cpu)
+    # control: attention's output detached, the parent's route
+    orig = transformer.flash_attention_op
+    transformer.flash_attention_op = lambda q, k, v, **kw: flash_attention_op(
+        q.detach(), k.detach(), v.detach(), **kw)
+    try:
+        _, g_bad = value_and_grad(model, gpu["params"], gbatch)
+    finally:
+        transformer.flash_attention_op = orig
+    bad = {p: e for p, e in _leaf_errs(np, g_bad, g_cpu).items()
+           if p.split("/")[-1] in ("wq", "wk", "wv")}
+    step = make_train_step(model, opt)
+    cpu, m_cpu = step(cpu, batch)
+    gpu, m_gpu = step(gpu, gbatch)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    gn_rel = abs(float(m_gpu["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
+    param_errs = _leaf_errs(np, gpu["params"], cpu["params"])
+    out = {"phase": "train", "check": "float32 train step, stablelm-3b 2 layers, b 2 x S 256, "
+           "card vs CPU", "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+           "grad_norm_rel_err": gn_rel, "worst_grad_leaf": max(grad_errs.items(),
+                                                               key=lambda t: t[1]),
+           "worst_param_leaf": max(param_errs.items(), key=lambda t: t[1]),
+           "detached_control_wqkv_rel_err": min(bad.values()), "seconds":
+           time.perf_counter() - t0}
+    emit(out)
+    if loss_rel > 1e-5:
+        fail(f"train step: loss {loss_rel} from the CPU's")
+    if max(grad_errs.values()) > 1e-4:
+        fail(f"train step: gradient leaf {out['worst_grad_leaf']} outside 1e-4")
+    if gn_rel > 1e-5 or max(param_errs.values()) > 1e-5:
+        fail(f"train step: grad norm {gn_rel} or params {out['worst_param_leaf']} outside 1e-5")
+    if min(bad.values()) <= 1e-4:
+        fail(f"train step: the detached-attention control passed ({bad})")
+    del cpu, gpu, g_cpu, g_gpu, g_bad
+    _free(torch)
+
+
+def _train_run(ctx, torch, rt, name, cfg, batch, seq, steps=10):
+    """``steps`` steps through ``Trainer`` on the card, checkpoints every 5
+    submitted to its async writer (the caller drains it: the writes overlap
+    what runs next); returns (trainer, losses, step times s, peak GiB,
+    counts, train s)."""
+    import numpy as np
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    model = build_model(cfg)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    loader = ShardedLoader(seed=0, vocab=cfg.vocab_size, seq_len=seq,
+                           batch_per_shard=batch // 2, num_shards=2, owned=[0, 1])
+    tr = Trainer(model, opt, loader, TrainerConfig(workdir=os.path.join(rt, name),
+                                                   checkpoint_every=5), device="cuda")
+    tr.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset()
+    t0 = time.perf_counter()
+    tr.train(steps)
+    torch.cuda.synchronize()
+    counts = _read()
+    t_train = time.perf_counter() - t0
+    losses = [m["loss"] for m in tr.metrics_log]
+    times = [m["step_time"] for m in tr.metrics_log]
+    peak = _peak_gb(torch)
+    if not all(np.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train {name}: losses {losses} not finite and falling")
+    tr.state = None  # the writer holds its host copies
+    _free(torch)
+    return tr, losses, times, peak, counts, t_train
+
+
+def _drain(tr, name, steps=10):
+    """Wait for a trainer's async checkpoints; seconds waited."""
+    t0 = time.perf_counter()
+    tr.writer.drain()
+    tr.close()
+    if len(tr.writer.written) != steps // 5:
+        fail(f"train {name}: {len(tr.writer.written)} checkpoints written, not {steps // 5}")
+    return time.perf_counter() - t0
+
+
+def _train_cli(ctx, torch, rt):
+    """Crash and resume through ``python -m repro_torch.launch.train``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+            "--arch", "stablelm-3b", "--steps", "30", "--batch", "4", "--seq", "64",
+            "--checkpoint-every", "10"]
+
+    def run(workdir, *extra):
+        r = subprocess.run(base + ["--workdir", workdir, *extra], capture_output=True,
+                           text=True, env=env, cwd=HERE, timeout=300)
+        return r
+
+    def losses(workdir):
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            return {m["step"]: m["loss"] for m in map(json.loads, f)}
+
+    t0 = time.perf_counter()
+    a, b = os.path.join(rt, "cli_whole"), os.path.join(rt, "cli_crash")
+    # the uninterrupted run in its own process beside the crash and resume
+    with subprocess.Popen(base + ["--workdir", a], stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, env=env, cwd=HERE) as p:
+        crash = run(b, "--simulate-failure", "17")
+        resumed = run(b, "--resume")
+        out, err = p.communicate(timeout=300)
+    whole = subprocess.CompletedProcess(p.args, p.returncode, out, err)
+    codes = (whole.returncode, crash.returncode, resumed.returncode)
+    if codes != (0, 17, 0):
+        fail(f"train CLI: exit codes {codes} (want 0, 17, 0): "
+             f"{(whole.stderr + crash.stderr + resumed.stderr)[-3000:]}")
+    want, got = losses(a), losses(b)
+    if sorted(got) != list(range(17, 30)):
+        fail(f"train CLI: resumed steps {sorted(got)}")
+    rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in got)
+    emit({"phase": "train", "check": "CLI crash at 17 and resume, stablelm-3b reduced, "
+          "f32, 30 steps", "exit_codes": list(codes), "resumed_max_rel_err": rel,
+          "resumed_line": resumed.stdout.splitlines()[0], "seconds": time.perf_counter() - t0})
+    if rel > 1e-4:
+        fail(f"train CLI: resumed losses {rel} from the uninterrupted run's")
+
+
+def phase_train(ctx, torch, rt):
+    """Training: the flash backward kernel against its plain version at
+    the train shapes, a float32 train step against the CPU, bf16 training
+    at full width through the Trainer, the CLI's crash and resume, and the
+    SSM's refusal."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    bf16, f32 = torch.bfloat16, torch.float32
+    flash_bwd_case(ctx, torch, gen, "faas-bench S=256", 1, 6, 6, 256, 64, f32)
+    flash_bwd_case(ctx, torch, gen, "stablelm-3b train b=4 S=1024", 4, 32, 32, 1024, 80, bf16,
+                   controls=("causal mask dropped",))
+    flash_bwd_case(ctx, torch, gen, "stablelm-3b S=1024", 1, 32, 32, 1024, 80, f32)
+    flash_bwd_case(ctx, torch, gen, "GQA 32:8 S=1024", 1, 32, 8, 1024, 128, bf16,
+                   controls=("GQA without the sum over rep",))
+    # scores of std 30: the cap of 50 bends them (unit scores would leave
+    # 1 - tanh^2 within 1e-3 of 1)
+    flash_bwd_case(ctx, torch, gen, "gemma-2 window 256 softcap 50 S=1024", 1, 32, 16, 1024,
+                   128, bf16, window=256, softcap=50.0, q_scale=30.0,
+                   controls=("softcap 1 - tanh^2 dropped",))
+    for dt in (bf16, f32):
+        flash_bwd_case(ctx, torch, gen, "paligemma-3b prefix 256 S=512", 1, 8, 1, 512, 256,
+                       dt, prefix_len=256)
+    flash_bwd_case(ctx, torch, gen, "whisper-small encoder S=1500", 1, 12, 12, 1500, 64, bf16,
+                   causal=False)
+    flash_bwd_case(ctx, torch, gen, "whisper-small cross S=64 Sk=1500", 1, 12, 12, 64, 64, bf16,
+                   Sk=1500, causal=False)
+    _free(torch)
+
+    _train_parity(ctx, torch)
+
+    # bf16 at full width through the Trainer: 2 + 2 flash launches a step
+    full = get_config("stablelm-3b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    tr_lm, losses, times, peak, counts, t_train = _train_run(ctx, torch, rt, "stablelm",
+                                                             cfg, 4, 1024)
+    ctx.paths["stablelm-3b train (bf16)"] = counts
+    steps = len(losses)
+    per_step = (counts["flash_attention"] / steps, counts["flash_attention_bwd"] / steps)
+    if per_step != (cfg.num_layers, cfg.num_layers):
+        fail(f"train stablelm-3b: flash launches a step {per_step}, want 2 + 2")
+    step_ms = statistics.median(times[1:]) * 1e3
+    main = next(c for c in ctx.cases if c["case"] == "stablelm-3b train b=4 S=1024")
+    flash_ms = per_step[0] * main["fwd_lse_ms"] + per_step[1] * main["kernel_ms"]
+    lm = {"phase": "train", "model": "stablelm-3b", "cut": f"num_layers {full.num_layers} -> 2",
+          "dtype": "bfloat16", "optimizer": "adamw (f32 m, v)", "batch": [4, 1024],
+          "losses": losses, "ms_per_step": step_ms, "first_step_ms": times[0] * 1e3,
+          "tokens_per_s": 4 * 1024 / (step_ms / 1e3), "peak_gib": peak,
+          "flash_fwd_bwd_per_step": per_step, "flash_share_of_step": flash_ms / step_ms,
+          "train_s": t_train, "launches": counts}
+    emit(lm)
+    fb = get_config("faas-bench")
+    tr_fb, losses, times, peak, counts, t_train = _train_run(ctx, torch, rt, "faas", fb, 4,
+                                                             256)
+    ctx.paths["faas-bench train (f32)"] = counts
+    emit({"phase": "train", "model": "faas-bench", "dtype": "float32", "batch": [4, 256],
+          "losses": losses, "ms_per_step": statistics.median(times[1:]) * 1e3,
+          "peak_gib": peak, "launches": counts})
+    if counts["flash_attention_bwd"] != 10 * fb.num_layers:
+        fail(f"train faas-bench: {counts['flash_attention_bwd']} backward launches")
+
+    _train_cli(ctx, torch, rt)
+    emit({"phase": "train", "check": "async checkpoints drained (2 each; the stablelm-3b "
+          "writes ran beside faas-bench and the CLI)",
+          "stablelm_drain_s": _drain(tr_lm, "stablelm"), "faas_drain_s": _drain(tr_fb, "faas")})
+
+    # the SSM family has no CUDA backward: its train step raises
+    m = build_model(reduced(get_config("mamba2-780m")))
+    opt = OptimizerConfig()
+    state = make_train_state(m, opt, 0, device="cuda")
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, m.cfg.vocab_size, (1, 64), dtype=np.int32)).cuda()
+    try:
+        make_train_step(m, opt)(state, {"tokens": tok, "labels": tok})
+    except NotImplementedError as e:
+        emit({"phase": "train", "check": "mamba2 reduced train step on the card raises",
+              "error": str(e)})
+    else:
+        fail("train: a mamba2 train step on the card did not raise")
+    del state
+    _free(torch)
+
+
 # ------------------------------------------------------------------- summary
 
 KERNELS = {  # source, the TPU kernel it replaces, the path its launches are read on,
@@ -2033,6 +2447,10 @@ KERNELS = {  # source, the TPU kernel it replaces, the path its launches are rea
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:101",
                         "olmoe-1b-7b served", "olmoe-1b-7b S=256"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:136 (no Pallas kernel: JAX "
+                            "differentiates blockwise_attention)",
+                            "stablelm-3b train (bf16)", "stablelm-3b train b=4 S=1024"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd/kernel.py:80", "jamba-v0.1-52b prefill",
                  "jamba-v0.1-52b width l=1024"),
@@ -2062,7 +2480,7 @@ def summary(ctx):
 PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels),
           ("faas", phase_faas), ("stablelm", phase_stablelm), ("mamba2", phase_mamba2),
           ("olmoe", phase_olmoe), ("decode", phase_decode), ("encdec", phase_encdec),
-          ("grok", phase_grok),
+          ("grok", phase_grok), ("train", phase_train),
           ("serve", phase_serve))
 
 

@@ -14,7 +14,7 @@ CUDA-graph replays (``chip_smoke.device_ms``).  The cases take no key
 length or prefix other than the defaults, so a checkout from before
 either was added runs them too.  Prints one JSON line per (source, case)
 and the card's name and power limit; a process that builds the kernel
-also prints the registers ``ptxas`` gave each instantiation.
+also prints the registers and spills ``ptxas`` gave each instantiation.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def child(src: str) -> None:
     _build.load("flash_attention")
     log = _build.build_log.get("flash_attention", "")
     cs.emit({"src": src, "ptxas": [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                                   if "registers" in ln]})
+                                   if "registers" in ln or "spill" in ln]})
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -12,7 +12,7 @@ The snapshot core is copied verbatim.
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,8 +23,12 @@ PyTree = Any
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host copy of ``t``; bfloat16 becomes its ``uint16`` bit pattern."""
-    t = t.detach().contiguous().cpu()
+    """Host copy of ``t``; bfloat16 becomes its ``uint16`` bit pattern.
+
+    Always a copy, also of a CPU tensor: the optimizer updates its tensors
+    in place, and an async checkpoint hashes this array after the next step
+    has begun."""
+    t = torch.empty(t.shape, dtype=t.dtype, device="cpu").copy_(t.detach())
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -36,7 +40,7 @@ def to_tensor(arr: np.ndarray, dtype: torch.dtype, device: DeviceLike) -> torch.
     ``arr`` may be read-only (pooled restore buffers are); the result never
     aliases it.  For a bfloat16 target ``arr`` holds 2-byte bit patterns
     (``uint16``, or ``ml_dtypes.bfloat16`` from the JAX package)."""
-    a = np.ascontiguousarray(arr)
+    a = np.ascontiguousarray(arr).reshape(np.shape(arr))  # keeps a 0-d array 0-d
     if dtype == torch.bfloat16:
         if a.dtype.itemsize != 2:
             raise TypeError(f"bfloat16 needs 2-byte bit patterns, got {a.dtype}")
@@ -53,16 +57,39 @@ def to_tensor(arr: np.ndarray, dtype: torch.dtype, device: DeviceLike) -> torch.
     return t
 
 
-def params_to_flat(params: PyTree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict of tensors → ``{"a/b/c": ndarray}`` with sorted keys, as
-    ``flatten_pytree`` orders them."""
-    out: Dict[str, np.ndarray] = {}
-    if isinstance(params, dict):
-        for k in sorted(params):
-            out.update(params_to_flat(params[k], f"{prefix}{k}/"))
-    elif params is not None:
-        out[prefix[:-1]] = to_numpy(params)
-    return out
+def flat_tensors(tree: PyTree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """Nested dict of tensors → ``[("a/b/c", tensor), ...]`` in sorted key
+    order, as ``flatten_pytree`` orders them (no copies)."""
+    if isinstance(tree, dict):
+        return [pt for k in sorted(tree) for pt in flat_tensors(tree[k], f"{prefix}{k}/")]
+    return [] if tree is None else [(prefix[:-1], tree)]
+
+
+def params_to_flat(params: PyTree) -> Dict[str, np.ndarray]:
+    """Nested dict of tensors → ``{"a/b/c": ndarray}`` host copies with
+    sorted keys, as ``flatten_pytree`` orders them."""
+    return {path: to_numpy(t) for path, t in flat_tensors(params)}
+
+
+def train_state_to_flat(state: PyTree) -> Dict[str, np.ndarray]:
+    """A train state ``{"params", "opt": {"m", "v", "step"}}`` (AdamW) or
+    ``{"params", "opt": {"v": {... {"vr", "vc"} | {"v"}}, "step"}}``
+    (Adafactor) → host copies at JAX's flat paths (``opt/m/embed/table``,
+    ``opt/step``, ``params/...``), as the JAX trainer checkpoints it."""
+    return params_to_flat(state)
+
+
+def train_state_from_numpy(flat: Dict[str, np.ndarray], device: DeviceLike = None, *,
+                           template: PyTree) -> PyTree:
+    """The inverse of :func:`train_state_to_flat`, also for a JAX train
+    state's ``flatten_pytree``: ``template`` is
+    ``launch.steps.train_state_shapes(model, opt_cfg)``, whose dtypes turn
+    bfloat16 bit patterns back into bfloat16.  Every leaf of the template
+    must be in ``flat``."""
+    missing = sorted({path for path, _ in flat_tensors(template)} - set(flat))
+    if missing:
+        raise KeyError(f"train state leaves missing from the snapshot: {missing[:5]}")
+    return params_from_flat(flat, device, template=template)
 
 
 def _leaf_dtype(arr: np.ndarray) -> torch.dtype:

@@ -7,7 +7,9 @@
 // (GQA, MQA), scores = (q . k) * scale, soft-capped (cap * tanh(s / cap))
 // BEFORE the causal, prefix-LM and sliding-window masks, masked scores set to -1e30,
 // an online softmax with a float32 running max m, sum l and accumulator,
-// and out = acc / max(l, 1e-30) written in q's dtype.  KV tiles that are
+// and out = acc / max(l, 1e-30) written in q's dtype.  For training it also
+// writes each row's log-sum-exp m + log(l) (float32), which the backward in
+// flash_attention_bwd.cu reads; inference passes no buffer for it.  KV tiles that are
 // wholly masked for the q tile (past the causal frontier, older than the
 // window) are skipped, as the TPU kernel's pl.when guard skips them.  Unlike
 // the TPU kernel it needs no divisibility: a ragged sequence length is
@@ -98,6 +100,7 @@ constexpr int kConsumers = 128;            // one warpgroup
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kSlabBytes = 128;            // one 128-byte swizzle row
 constexpr float kNegInf = -1e30f;
+constexpr float kLseEmpty = 1e30f;         // lse of a row with no allowed key
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -119,6 +122,7 @@ struct Shape {
 
 struct Params {
   void* o;
+  float* lse;          // (B, H, S) row log-sum-exp for the backward, or null
   int64_t ob, oh, os;  // output strides in elements
   int S, Sk, hd, rep, n_qtiles;
   float scale, softcap, inv_softcap;
@@ -595,6 +599,13 @@ flash_fwd(__grid_constant__ const CUtensorMap tq,
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (p.lse != nullptr && t == 0) {
+    // m + log(l) of the scaled, soft-capped, masked scores; a row that saw
+    // no allowed key (m stayed -1e30) gets a sentinel whose P is 0
+    float* lp = p.lse + ((int64_t)b * gridDim.x + h) * p.S;
+    if (qpos0 < p.S) lp[qpos0] = m0 == kNegInf ? kLseEmpty : m0 + logf(l0);
+    if (qpos1 < p.S) lp[qpos1] = m1 == kNegInf ? kLseEmpty : m1 + logf(l1);
+  }
   T* op = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
 #pragma unroll
   for (int nb = 0; nb < HDP / 8; ++nb) {
@@ -682,9 +693,10 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
 // head, seq) for q, k, v, o in that order; the head dim has stride 1.
+// lse: null, or a (B, H, S) float32 buffer for each row's log-sum-exp.
 // width / tile_k / stages / smem: the wrapper's launch plan.
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int KVH, int S, int Sk, int hd,
+                        void* o, float* lse, int B, int H, int KVH, int S, int Sk, int hd,
                         const int64_t* strides, float scale, int causal,
                         int window, int prefix_len, float softcap, int width, int tile_k,
                         int stages, int smem, void* stream) {
@@ -701,6 +713,7 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
   if (rc != 0) return rc;
   Params p;
   p.o = o;
+  p.lse = lse;
   p.ob = strides[9];
   p.oh = strides[10];
   p.os = strides[11];

@@ -156,7 +156,7 @@ def _fn():
     if not _fn_cache:
         fn = _build.load("flash_attention").flash_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p,
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, p,
                        ctypes.c_float, i, i, i, ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
         _fn_cache.append(fn)
@@ -173,8 +173,11 @@ def flash_attention(
     window: int = 0,
     softcap: float = 0.0,
     prefix_len: int = 0,
-) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; returns (b, nh, S, hd)."""
+    return_lse: bool = False,
+):
+    """Launch the CUDA kernel on CUDA tensors; returns (b, nh, S, hd), and
+    with ``return_lse`` also each row's log-sum-exp (b, nh, S) float32 for
+    the backward (``LSE_EMPTY`` where a row has no allowed key)."""
     dev = require_cuda("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q (b, nh, S, hd), k / v (b, nkv, Sk, hd)")
@@ -198,13 +201,15 @@ def flash_attention(
         if why:
             raise ValueError(f"flash_attention: {why}")
     out = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    lse = torch.empty((b, nh, S), dtype=torch.float32, device=dev) if return_lse else None
     strides = (ctypes.c_int64 * 12)(
         *_tma_strides(q, hd), *_tma_strides(k, hd), *_tma_strides(v, hd),
         *out.stride()[:3])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), b, nh, nkv, S, Sk, hd, strides,
+                   out.data_ptr(), lse.data_ptr() if return_lse else None,
+                   b, nh, nkv, S, Sk, hd, strides,
                    float(scale), int(causal), int(window), int(prefix_len),
                    float(softcap),
                    plan.width, plan.tile_k, plan.stages, plan.smem_bytes, stream)
@@ -212,4 +217,141 @@ def flash_attention(
         raise RuntimeError(f"flash_attention: {_ERRORS[rc]} (error {rc})")
     check_launch("flash_attention", rc)
     launches.add()
-    return out
+    return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------- backward
+#
+# ``csrc/flash_attention_bwd.cu``: a float32 pre-pass D = rowsum(dO * O),
+# then one CTA per (key tile, kv head, batch) for dK / dV, summing the
+# ``rep`` q heads of its group (no atomics), and one per (q tile, q head,
+# batch) for dQ.  No Pallas kernel has a backward: it is the port's
+# counterpart of JAX's recompute under ``jax.checkpoint`` in
+# ``repro.models.attention.blockwise_attention``.
+
+#: launches of the CUDA backward (one per call: its three kernels)
+bwd_launches = LaunchCounter()
+
+#: the forward's lse of a row with no allowed key: its P is exp(s - 1e30) = 0
+LSE_EMPTY = 1e30
+BWD_THREADS = 256
+_bwd_fn_cache = []
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """How the backward runs one call."""
+
+    head_dim: int
+    width: int               # instantiated head-dim width (zero-padded)
+    tile: int                # q rows and key rows of a step
+    smem_bytes: int          # dynamic shared memory of one CTA (either kernel)
+    blocks_per_sm: int       # CTAs an SM holds by shared memory
+    grid_dkv: Tuple[int, int, int]  # (key tiles, kv heads, batch)
+    grid_dq: Tuple[int, int, int]   # (q tiles, heads, batch)
+    threads: int = BWD_THREADS
+
+
+def _bwd_smem(width: int, tile: int) -> int:
+    # K, V, Q, dO as float rows of width + 1; P and dS as rows of tile + 1;
+    # lse and D of the q tile
+    return (4 * tile * (width + 1) + 2 * tile * (tile + 1) + 2 * tile) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_plan(dtype: torch.dtype, head_dim: int, *, batch: int = 1, heads: int = 1,
+                    kv_heads: int = 1, seq: int = 1, kv_seq: int = 1) -> FlashBwdPlan:
+    """The backward's launch plan: the forward's head-dim widths, tiles of
+    64 rows (32 at width 256, to fit shared memory)."""
+    fwd = launch_plan(dtype, head_dim)
+    width = fwd.width
+    tile = 32 if width == 256 else 64
+    smem = _bwd_smem(width, tile)
+    per_sm = max(1, min(2, SMEM_PER_SM // (smem + SMEM_RESERVED)))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"head dim {head_dim}: the backward's tiles need {smem} bytes")
+    return FlashBwdPlan(head_dim=head_dim, width=width, tile=tile, smem_bytes=smem,
+                        blocks_per_sm=per_sm,
+                        grid_dkv=(-(-kv_seq // tile), kv_heads, batch),
+                        grid_dq=(-(-seq // tile), heads, batch))
+
+
+def bwd_q_tiles(kt: int, S: int, Sk: int, tile: int, *, causal: bool, window: int,
+                prefix_len: int) -> list:
+    """The q tiles the dK / dV kernel walks for key tile ``kt``: those whose
+    forward walk (``live_tiles`` at ``tile`` rows) holds it."""
+    return [qt for qt in range(-(-S // tile))
+            if kt in live_tiles(qt * tile, min(qt * tile + tile - 1, S - 1), Sk, tile,
+                                causal=causal, window=window, prefix_len=prefix_len)]
+
+
+def _bwd_fn():
+    if not _bwd_fn_cache:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
+                       f, i, i, i, f, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _bwd_fn_cache.append(fn)
+    return _bwd_fn_cache[0]
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,    # (b, nh, S, hd)
+    k: torch.Tensor,    # (b, nkv, Sk, hd)
+    v: torch.Tensor,    # (b, nkv, Sk, hd)
+    o: torch.Tensor,    # (b, nh, S, hd): the forward's output
+    do: torch.Tensor,   # (b, nh, S, hd): its gradient
+    lse: torch.Tensor,  # (b, nh, S) float32: the forward's row log-sum-exp
+    *,
+    scale: float,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+    prefix_len: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the CUDA backward on CUDA tensors; returns (dq, dk, dv) shaped
+    like q, k, v (views of the model's (b, s, heads, hd) layout), in their
+    dtype.  Any (batch, head, seq) strides with a unit-stride head dim."""
+    dev = require_cuda("flash_attention_bwd", q, k, v, o, do, lse)
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected q (b, nh, S, hd), k / v (b, nkv, Sk, hd)")
+    b, nh, S, hd = q.shape
+    _, nkv, Sk, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and dO {tuple(do.shape)} must be shaped "
+                         f"like q {tuple(q.shape)}")
+    if tuple(lse.shape) != (b, nh, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous float32 (b, nh, S) = {(b, nh, S)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if nkv == 0 or nh % nkv:
+        raise ValueError(f"{nh} query heads do not group over {nkv} kv heads")
+    code = _DTYPES.get(q.dtype)
+    if code is None or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise TypeError(f"q, k, v, o, dO must share float32 or bfloat16, got "
+                        f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)):
+        if t.stride(3) != 1 and hd > 1:
+            raise ValueError(f"flash_attention_bwd: {name} needs a unit-stride head dim")
+    plan = bwd_launch_plan(q.dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk)
+    dq = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    delta = torch.empty((b, nh, S), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_int64 * 24)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bwd_fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                       lse.data_ptr(), delta.data_ptr(), b, nh, nkv, S, Sk, hd, strides,
+                       float(scale), int(causal), int(window), int(prefix_len),
+                       float(softcap), plan.width, plan.tile, plan.smem_bytes, stream)
+    if rc in _ERRORS:
+        raise RuntimeError(f"flash_attention_bwd: {_ERRORS[rc]} (error {rc})")
+    check_launch("flash_attention_bwd", rc)
+    bwd_launches.add()
+    return dq, dk, dv

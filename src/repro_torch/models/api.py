@@ -1,5 +1,6 @@
 """Public model API of the port: ``Model`` with ``init``, ``param_shapes``,
-``forward``, ``logits``, ``init_cache``, ``prefill`` and ``decode_step`` over
+``forward``, ``logits``, ``loss``, ``init_cache``, ``prefill`` and
+``decode_step`` over
 nested dicts of tensors, for every family of ``repro.models.api``: dense,
 MoE, SSM, the hybrid, the encoder-decoder (whisper; ``prefix_embeds``
 carries the frame embeddings of its stubbed audio frontend) and the VLM
@@ -17,7 +18,14 @@ from . import blocks as blocks_mod
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
 from .layers import apply_norm, sinusoidal_positions, softcap
-from .transformer import ENC_DEC_KINDS, apply_stack, init_params, param_shapes, torch_dtype
+from .transformer import (
+    ENC_DEC_KINDS,
+    apply_stack,
+    chunked_cross_entropy,
+    init_params,
+    param_shapes,
+    torch_dtype,
+)
 
 PyTree = Any
 
@@ -25,13 +33,21 @@ PyTree = Any
 @dataclass
 class Batch:
     tokens: torch.Tensor                        # (b, s) integer
-    labels: Optional[torch.Tensor] = None       # training: a later slice
+    labels: Optional[torch.Tensor] = None       # (b, s) for the loss; -1 ignored
     prefix_embeds: Optional[torch.Tensor] = None  # (b, p, D) frames or patches
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    """``remat`` recomputes each macro-block in the backward, carrying the
+    residual stream in float32 (``remat_group`` > 1: groups of blocks, the
+    two-level remat); ``loss_chunk`` is the sequence chunk of the loss."""
+
+    def __init__(self, cfg: ModelConfig, *, remat: bool = False, loss_chunk: int = 1024,
+                 remat_group: int = 1):
         self.cfg = cfg
+        self.remat = remat
+        self.loss_chunk = loss_chunk
+        self.remat_group = remat_group
         self.plan = blocks_mod.build_plan(cfg)
         self._shapes: Optional[PyTree] = None
         self._pos_tables: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}
@@ -93,14 +109,15 @@ class Model:
             raise TypeError(f"frame embeddings of {frames.dtype} for a model of "
                             f"{table.dtype}: the port takes them in the model's dtype")
         h = frames + self._positions(frames.shape[1], frames)
-        h, _ = apply_stack(cfg, ENC_DEC_KINDS, params["enc"]["blocks"], h,
-                           positions=torch.arange(h.shape[1], device=h.device),
-                           causal=False)
+        h, _, _ = apply_stack(cfg, ENC_DEC_KINDS, params["enc"]["blocks"], h,
+                              positions=torch.arange(h.shape[1], device=h.device),
+                              causal=False, remat=self.remat)
         return apply_norm(h, params["enc"]["final_norm"], cfg.norm)
 
-    def _run(self, params, batch: Batch, **kw) -> Tuple[torch.Tensor, PyTree, int]:
+    def _run(self, params, batch: Batch,
+             **kw) -> Tuple[torch.Tensor, PyTree, int, torch.Tensor]:
         """The stack over a full sequence, normed; returns (h, caches or
-        None, prefix length).  The encoder-decoder runs the encoder and the
+        None, prefix length, the summed MoE aux loss).  The encoder-decoder runs the encoder and the
         decoder over the text with cross-attention; a ``prefix_embeds`` of
         any other family goes, unscaled, before the scaled text embeddings
         and every query sees it (the prefix-LM)."""
@@ -114,25 +131,45 @@ class Model:
                                  "(Batch.prefix_embeds)")
             enc = self._encode(params, prefix)
             h = h + self._positions(h.shape[1], h)
-            h, caches = apply_stack(cfg, ENC_DEC_KINDS, params["blocks"], h,
-                                    positions=torch.arange(h.shape[1], device=h.device),
-                                    cross=True, cross_states=enc, **kw)
+            h, caches, aux = apply_stack(cfg, ENC_DEC_KINDS, params["blocks"], h,
+                                         positions=torch.arange(h.shape[1], device=h.device),
+                                         cross=True, cross_states=enc, remat=self.remat,
+                                         **kw)
         else:
             if prefix is not None:
                 prefix_len = prefix.shape[1]
                 h = torch.cat([prefix.to(h.dtype), h], dim=1)
-            h, caches = apply_stack(cfg, self.plan.kinds, params["blocks"], h,
-                                    positions=torch.arange(h.shape[1], device=h.device),
-                                    prefix_len=prefix_len, **kw)
-        return apply_norm(h, params["final_norm"], cfg.norm), caches, prefix_len
+            h, caches, aux = apply_stack(cfg, self.plan.kinds, params["blocks"], h,
+                                         positions=torch.arange(h.shape[1], device=h.device),
+                                         prefix_len=prefix_len, remat=self.remat,
+                                         remat_group=self.remat_group, **kw)
+        return apply_norm(h, params["final_norm"], cfg.norm), caches, prefix_len, aux
 
     def forward(self, params, batch: Batch) -> torch.Tensor:
         """Full-sequence final hidden states of the text (b, s, D)."""
-        h, _, prefix_len = self._run(params, batch)
+        h, _, prefix_len, _ = self._run(params, batch)
         return h[:, prefix_len:]
 
     def logits(self, params, batch: Batch) -> torch.Tensor:
         return self._logits_head(params, self.forward(params, batch))
+
+    def loss(self, params, batch: Batch, *, aux_weight: float = 0.01) -> torch.Tensor:
+        """Mean next-token cross-entropy over ``batch.labels`` (-1 ignored),
+        plus ``aux_weight * aux / num_layers`` for MoE configs: JAX's
+        ``Model.loss``, with the aux returned by the stack instead of kept
+        on the model."""
+        if batch.labels is None:
+            raise ValueError("the loss needs Batch.labels")
+        cfg = self.cfg
+        h, _, prefix_len, aux = self._run(params, batch)
+        table = params["embed"]["table"] if cfg.tie_embeddings else params["lm_head"]["w"]
+        ce = chunked_cross_entropy(h[:, prefix_len:], table, batch.labels,
+                                   final_softcap=cfg.final_logit_softcap,
+                                   chunk=self.loss_chunk,
+                                   transpose_head=not cfg.tie_embeddings)
+        if cfg.num_experts:
+            ce = ce + aux_weight * aux / max(1, cfg.num_layers)
+        return ce
 
     # -- caches ---------------------------------------------------------------
 
@@ -185,7 +222,7 @@ class Model:
     def prefill(self, params, batch: Batch, cache_len: int) -> Tuple[torch.Tensor, PyTree]:
         """Run the full prompt (a VLM prefix included); returns (last-token
         logits (b, 1, V), cache)."""
-        h, caches, _ = self._run(params, batch, make_cache=True, cache_len=cache_len)
+        h, caches, _, _ = self._run(params, batch, make_cache=True, cache_len=cache_len)
         return self._logits_head(params, h[:, -1:, :]), caches
 
     def decode_step(self, params, cache: PyTree, tokens: torch.Tensor,
@@ -208,12 +245,12 @@ class Model:
                                  f"{cache_len} positions")
             h = h + self._positions(cache_len, h)[pos]
             kinds, cross = ENC_DEC_KINDS, True
-        h, cache = apply_stack(cfg, kinds, params["blocks"], h,
-                               positions=torch.arange(1, device=h.device), cache=cache,
-                               decode=True, pos=pos, cross=cross)
+        h, cache, _ = apply_stack(cfg, kinds, params["blocks"], h,
+                                  positions=torch.arange(1, device=h.device), cache=cache,
+                                  decode=True, pos=pos, cross=cross)
         h = apply_norm(h, params["final_norm"], cfg.norm)
         return self._logits_head(params, h)[:, 0, :], cache
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, **kw) -> Model:
+    return Model(cfg, **kw)

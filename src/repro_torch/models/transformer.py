@@ -18,17 +18,19 @@ invocation.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.nn.functional import pad as _pad
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks as blocks_mod
 from ..kernels.flash_attention import flash_attention_op
 from .attention import decode_attention
 from .config import LayerKind, ModelConfig
-from .layers import apply_norm, apply_rope, mlp
+from .layers import apply_norm, apply_rope, mlp, softcap
 from .moe import moe_ffn
 from .ssm import mamba_mixer
 
@@ -208,8 +210,10 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
                 cross: bool = False, cross_states: Optional[torch.Tensor] = None,
                 cache: Optional[PyTree] = None, decode: bool = False,
                 pos: Optional[int] = None, make_cache: bool = False,
-                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[PyTree]]:
-    """One layer; returns (h, new cache or None).
+                cache_len: int = 0
+                ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
+    """One layer; returns (h, new cache or None, MoE aux loss: a float32
+    scalar, 0 without a MoE FFN).
 
     ``decode`` runs one token at ``pos`` against ``cache`` (this layer's
     slice), which it updates in place and returns.  ``make_cache`` returns
@@ -222,6 +226,7 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
     ``cv``; over the cached ``ck`` and ``cv`` in ``decode`` (JAX passes a
     sentinel ``cross_states`` there instead of the flag)."""
     new_cache = None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     # the residual stream h may be f32 (carry precision); compute in cfg dtype
     cdt = torch_dtype(cfg.dtype) if h.dtype == torch.float32 else h.dtype
     x = apply_norm(h, p["ln1"], cfg.norm).to(cdt)
@@ -276,13 +281,13 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             # decode: a handful of tokens, so the drop-free capacity E / K,
             # and decode agrees with the teacher-forced forward; the forward
             # and prefill keep the config's (they may drop), as in JAX.  The
-            # aux loss is for training, which sums it (a later slice).
+            # aux loss goes to training's loss, summed over the layers.
             cf = float(cfg.num_experts) / cfg.num_experts_per_tok if decode else None
-            y, _ = moe_ffn(p["ffn"], x2, cfg, capacity_factor=cf)
+            y, aux = moe_ffn(p["ffn"], x2, cfg, capacity_factor=cf)
         else:
             y = mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
         h = h + y
-    return h, new_cache
+    return h, new_cache, aux
 
 
 def _first_leaf(tree: PyTree) -> torch.Tensor:
@@ -302,30 +307,111 @@ def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor,
                 cross: bool = False, cross_states: Optional[torch.Tensor] = None,
                 cache: Optional[PyTree] = None, decode: bool = False,
                 pos: Optional[int] = None, make_cache: bool = False,
-                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[PyTree]]:
+                cache_len: int = 0, remat: bool = False, remat_group: int = 1
+                ) -> Tuple[torch.Tensor, Optional[PyTree], torch.Tensor]:
     """Loop over the stacked macro-blocks (the JAX ``lax.scan``); returns
-    (h, caches or None).
+    (h, caches or None, the summed MoE aux loss).
 
     The cache's leaves carry the leading ``n_repeat`` axis, as the scan
     stacks them.  ``decode`` updates ``cache`` in place, one layer slice at
     a time, and returns it.  ``make_cache`` fills a new cache, one layer
-    slice at a time."""
+    slice at a time.
+
+    ``remat`` carries the residual stream in float32 and, over a full
+    sequence, recomputes each macro-block in the backward
+    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the scan body);
+    ``remat_group > 1`` (dividing ``n_repeat``) checkpoints groups of that
+    many checkpointed blocks, JAX's two-level remat."""
     n_repeat = _first_leaf(blocks_params).shape[0]
     caches: Dict[str, Any] = {}
-    for r in range(n_repeat):
+
+    def block(r: int, hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         bp = _index(blocks_params, r)
+        aux = torch.zeros((), dtype=torch.float32, device=hh.device)
         for i, kind in enumerate(kinds):
             c_i = _index(cache[f"pos{i}"], r) if decode else None
-            h, nc = apply_layer(cfg, kind, bp[f"pos{i}"], h, positions=positions,
-                                causal=causal, prefix_len=prefix_len, cross=cross,
-                                cross_states=cross_states, cache=c_i, decode=decode,
-                                pos=pos, make_cache=make_cache, cache_len=cache_len)
+            hh, nc, a = apply_layer(cfg, kind, bp[f"pos{i}"], hh, positions=positions,
+                                    causal=causal, prefix_len=prefix_len, cross=cross,
+                                    cross_states=cross_states, cache=c_i, decode=decode,
+                                    pos=pos, make_cache=make_cache, cache_len=cache_len)
+            aux = aux + a
             if make_cache and nc is not None:
                 slot = caches.setdefault(f"pos{i}", {})
                 for leaf, t in nc.items():
                     if leaf not in slot:
                         slot[leaf] = t.new_empty((n_repeat,) + tuple(t.shape))
                     slot[leaf][r] = t
+        return hh, aux
+
+    if remat:
+        # f32 residual stream: what the checkpoints keep between blocks
+        h = h.float()
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    recompute = remat and not (decode or make_cache) and torch.is_grad_enabled()
+    if recompute and remat_group > 1 and n_repeat % remat_group == 0:
+        def group(g: int, hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            a = torch.zeros((), dtype=torch.float32, device=hh.device)
+            for r in range(g * remat_group, (g + 1) * remat_group):
+                hh, a_r = checkpoint(block, r, hh, use_reentrant=False)
+                a = a + a_r
+            return hh, a
+
+        for g in range(n_repeat // remat_group):
+            h, a = checkpoint(group, g, h, use_reentrant=False)
+            aux = aux + a
+        return h, None, aux
+    for r in range(n_repeat):
+        if recompute:
+            h, a = checkpoint(block, r, h, use_reentrant=False)
+        else:
+            h, a = block(r, h)
+        aux = aux + a
     if decode:
-        return h, cache
-    return h, (caches or None)
+        return h, cache, aux
+    return h, (caches or None), aux
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(hc: torch.Tensor, lc: torch.Tensor, W: torch.Tensor,
+              final_softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Summed NLL and count of valid labels of one chunk; float32 logits
+    from any weight dtype (the products of bf16 values are exact in
+    float32: JAX's preferred_element_type=f32)."""
+    logits = hc.to(W.dtype).float() @ W.float()
+    if final_softcap > 0.0:
+        logits = softcap(logits, final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp(min=0).long()[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, embed_table: torch.Tensor,
+                          labels: torch.Tensor, *, final_softcap: float = 0.0,
+                          chunk: int = 1024, transpose_head: bool = False) -> torch.Tensor:
+    """Mean cross-entropy over labels >= 0 (-1 is ignored) without keeping
+    the (b, s, V) logits: chunks of the sequence, each under
+    ``torch.utils.checkpoint`` when gradients are wanted, so that one
+    chunk's (b, chunk, V) float32 logits are live at a time.  ``h`` (b, s,
+    D); ``embed_table`` (V, D) tied, or the head (D, V) with
+    ``transpose_head``.  A chunk that does not divide s (VLM text lengths)
+    becomes gcd(s, chunk), as in JAX."""
+    b, s, D = h.shape
+    chunk = min(chunk, s)
+    if s % chunk != 0:
+        chunk = math.gcd(s, chunk) or s
+    W = embed_table if transpose_head else embed_table.t()  # (D, V)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        hc, lc = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_ce_chunk, hc, lc, W, final_softcap, use_reentrant=False)
+        else:
+            nll, n = _ce_chunk(hc, lc, W, final_softcap)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

@@ -543,3 +543,53 @@ def test_moe_ffn_does_not_synchronise(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(y.float()).all() and torch.isfinite(aux)
+
+
+# ------------------------------------------------------------- training
+
+BWD_CASES = {
+    "stablelm_hd80_causal": (2, 8, 8, 300, 300, 80, True, 0, 0.0, 0),
+    "gqa_window_softcap": (1, 8, 2, 200, 200, 128, True, 48, 30.0, 0),
+    "mqa_hd256_prefix": (1, 4, 1, 130, 130, 256, True, 0, 0.0, 77),
+    "cross_sk_gt_s": (2, 4, 4, 40, 150, 64, False, 0, 0.0, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_flash_bwd_matches_plain_and_is_deterministic(cuda, name, dtype):
+    """Through ``flash_attention_op``'s autograd.Function: dq, dk, dv
+    against ``attention_bwd_ref`` from the kernel's own o and lse (f32
+    5e-5, bf16 2e-2 of each gradient's largest entry), one forward with
+    lse and one backward launched, and two backward calls bit-equal."""
+    b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len = BWD_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((b, n, h, hd), generator=g, device=cuda).to(dtype)
+               .requires_grad_(True) for n, h in ((S, nh), (Sk, nkv), (Sk, nkv)))
+    do = torch.randn((b, S, nh, hd), generator=g, device=cuda).to(dtype)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    f0, b0 = tflash.launches.value, tflash.bwd_launches.value
+    got = torch.autograd.grad(tflash.flash_attention_op(q, k, v, **kw), (q, k, v), do)
+    assert (tflash.launches.value - f0, tflash.bwd_launches.value - b0) == (1, 1)
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    o, lse = tflash.flash_attention(qt, kt, vt, return_lse=True, **kw)
+    again = tflash.flash_attention_bwd(qt, kt, vt, o, do.transpose(1, 2).contiguous(), lse,
+                                       **kw)
+    ref = tflash.attention_bwd_ref(qt, kt, vt, o, do.transpose(1, 2), lse, **kw)
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    for x, y, r in zip(got, again, ref):
+        assert torch.equal(x, y.transpose(1, 2))
+        r = r.float().transpose(1, 2)
+        assert float((x.float() - r).abs().max()) <= tol * float(r.abs().max())
+
+
+def test_ssd_op_raises_under_grad_on_cuda(cuda):
+    """No CUDA backward for the SSD scan yet: with gradients wanted it
+    raises, without them it launches."""
+    x, dt, A, B, C, D = _xbc_views(cuda, 2, 96, 8, 32, 16, torch.float32)
+    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
+        tssd.ssd_op(x.detach().requires_grad_(True), dt, A, B, C, D, chunk=32)
+    with torch.no_grad():
+        y, _ = tssd.ssd_op(x, dt, A, B, C, D, chunk=32)
+    assert torch.isfinite(y).all()

@@ -414,3 +414,235 @@ def test_alignment_ignores_dims_of_length_one():
     strides arbitrary)."""
     x = torch.zeros((1, 1, 8, 32)).as_strided((1, 1, 8, 32), (3, 5, 32, 1))
     assert alignment_problem("q", x.data_ptr(), x.shape, x.stride(), 4) is None
+
+
+# ------------------------------------------------------------ the backward
+#
+# The backward kernel (``csrc/flash_attention_bwd.cu``) runs only on the
+# card.  Here: its plain formula against autograd in float64, its launch
+# plan and transposed tile walk, and the autograd.Function's plumbing with
+# the two kernel entry points stood in by their plain versions.
+
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_bwd_ref,
+    attention_fwd_ref,
+    flash_attention_op,
+)
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    FlashBwdPlan,
+    bwd_launch_plan,
+    bwd_q_tiles,
+)
+
+# (b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len)
+BWD_CASES = {
+    "mha_causal_hd64": (2, 4, 4, 70, 70, 64, True, 0, 0.0, 0),
+    "gqa_causal_hd80": (1, 8, 2, 50, 50, 80, True, 0, 0.0, 0),
+    "mqa_hd128": (1, 4, 1, 40, 40, 128, True, 0, 0.0, 0),
+    "bidirectional": (2, 4, 2, 45, 45, 64, False, 0, 0.0, 0),
+    "window": (1, 4, 2, 64, 64, 64, True, 16, 0.0, 0),
+    "softcap": (1, 4, 4, 48, 48, 64, True, 0, 30.0, 0),
+    "window_softcap": (1, 4, 2, 60, 60, 80, True, 12, 20.0, 0),
+    "prefix_mid_tile": (1, 4, 1, 60, 60, 64, True, 0, 0.0, 23),
+    "prefix_on_edge": (1, 4, 2, 80, 80, 64, True, 0, 0.0, 64),
+    "prefix_past_s": (1, 2, 2, 30, 30, 64, True, 0, 0.0, 50),
+    "cross_sk_gt_s": (2, 4, 4, 20, 75, 64, False, 0, 0.0, 0),
+    "causal_sk_gt_s": (1, 4, 2, 24, 50, 80, True, 0, 0.0, 0),
+}
+
+
+def _bwd_inputs(case, dtype=torch.float64, seed=11):
+    b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(dtype) for shape in
+               ((b, nh, S, hd), (b, nkv, Sk, hd), (b, nkv, Sk, hd)))
+    do = torch.from_numpy(rng.standard_normal((b, nh, S, hd))).to(dtype)
+    kw = dict(scale=hd ** -0.5, causal=causal, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_attention_bwd_ref_matches_float64_autograd(name):
+    """The explicit formula (float32, from the forward's lse) against
+    torch.autograd through ``attention_ref`` in float64, at 5e-6 of each
+    gradient's largest entry (float32 sums over at most 128 terms)."""
+    q, k, v, do, kw = _bwd_inputs(BWD_CASES[name])
+    q64, k64, v64 = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(attention_ref(q64, k64, v64, **kw), (q64, k64, v64), do)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o, lse = attention_fwd_ref(q32, k32, v32, **kw)
+    got = attention_bwd_ref(q32, k32, v32, o, do32, lse, **kw)
+    for g, w, what in zip(got, want, "qkv"):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = float((g.double() - w).abs().max())
+        assert err <= 5e-6 * float(w.abs().max()), (what, err)
+
+
+def test_attention_bwd_ref_controls_fail():
+    """Dropping the causal mask or the softcap's 1 - tanh^2, or taking one
+    head of a GQA group instead of the group's sum, moves the gradients far
+    outside the tolerance."""
+    q, k, v, do, kw = _bwd_inputs(BWD_CASES["window_softcap"])
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o, lse = attention_fwd_ref(q32, k32, v32, **kw)
+    dq, dk, dv = attention_bwd_ref(q32, k32, v32, o, do32, lse, **kw)
+    no_mask = attention_bwd_ref(q32, k32, v32, o, do32, lse,
+                                **dict(kw, causal=False, window=0))
+    assert float((no_mask[1] - dk).abs().max()) > 0.1 * float(dk.abs().max())
+    no_cap = attention_bwd_ref(q32, k32, v32, o, do32, lse, **dict(kw, softcap=0.0))
+    assert float((no_cap[0] - dq).abs().max()) > 0.01 * float(dq.abs().max())
+    q, k, v, do, kw = _bwd_inputs(BWD_CASES["gqa_causal_hd80"])
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o, lse = attention_fwd_ref(q32, k32, v32, **kw)
+    _, dk, _ = attention_bwd_ref(q32, k32, v32, o, do32, lse, **kw)
+    rep = q.shape[1] // k.shape[1]
+    one_head = attention_bwd_ref(q32[:, ::rep], k32, v32, o[:, ::rep], do32[:, ::rep],
+                                 lse[:, ::rep].contiguous(), **kw)[1]
+    assert float((one_head - dk).abs().max()) > 0.1 * float(dk.abs().max())
+
+
+def test_lse_of_a_row_without_keys_gives_zero_gradient():
+    """A causal window over fewer keys than queries leaves late rows with
+    no allowed key: their lse is the sentinel and they send no gradient."""
+    q, k, v, do, kw = _bwd_inputs((1, 2, 2, 40, 10, 64, True, 4, 0.0, 0), torch.float32)
+    o, lse = attention_fwd_ref(q, k, v, **kw)
+    empty = torch.arange(40) >= 10 + 4 - 1
+    assert bool((lse[..., empty] == 1e30).all()) and bool(torch.isfinite(lse).all())
+    dq, dk, dv = attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    assert float(dq[..., empty, :].abs().max()) == 0.0
+    keep = dict(kw)
+    ref = attention_bwd_ref(q[:, :, ~empty], k, v, o[:, :, ~empty], do[:, :, ~empty],
+                            lse[:, :, ~empty].contiguous(), **keep)
+    torch.testing.assert_close(dk, ref[1])
+    torch.testing.assert_close(dv, ref[2])
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_bwd_tile_walk_covers_every_allowed_pair(tile, causal):
+    """The dK / dV kernel's walk (``bwd_q_tiles``: the forward's walk
+    transposed) and the dQ kernel's (``live_tiles``) visit the same (q
+    tile, key tile) pairs; every allowed (q, k) pair lies in one, and every
+    disallowed pair of a visited pair of tiles lies in one the kernels
+    mask (``tile_needs_mask``).  Over lengths, key lengths, prefixes (mid
+    tile, on an edge, past S) and windows."""
+    checked = 0
+    for S in (1, 50, 64, 200):
+        for Sk in sorted({S, 33, 130}):
+            for prefix_len in (0, 1, 64, 77, 300):
+                for window in (0, 16, 40):
+                    walk = dict(causal=causal, window=window, prefix_len=prefix_len)
+                    allowed = _allowed(torch.arange(S)[:, None], torch.arange(Sk)[None, :],
+                                       **walk)
+                    n_q, n_k = -(-S // tile), -(-Sk // tile)
+                    fwd = {(qt, kt) for qt in range(n_q)
+                           for kt in live_tiles(qt * tile, min(qt * tile + tile, S) - 1, Sk,
+                                                tile, **walk)}
+                    bwd = {(qt, kt) for kt in range(n_k)
+                           for qt in bwd_q_tiles(kt, S, Sk, tile, **walk)}
+                    assert fwd == bwd, (S, Sk, prefix_len, window)
+                    for qt in range(n_q):
+                        q0, q_last = qt * tile, min(qt * tile + tile, S) - 1
+                        for kt in range(n_k):
+                            block = allowed[q0:q_last + 1, kt * tile:(kt + 1) * tile]
+                            where = (S, Sk, prefix_len, window, qt, kt)
+                            if (qt, kt) not in bwd:
+                                assert not block.any(), where
+                                continue
+                            if not block.all() or (kt + 1) * tile > Sk:
+                                assert tile_needs_mask(kt * tile, q0, q_last, Sk, tile,
+                                                       **walk), where
+                            checked += 1
+    assert checked > 400
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,cfg", _attention_configs(), ids=lambda x: x
+                         if isinstance(x, str) else "")
+def test_bwd_plan_takes_every_config(name, cfg, dtype):
+    """Every attention configuration of the port gets a backward plan whose
+    shared memory fits a block: the four operand tiles as float rows of
+    width + 1, P and dS, lse and D."""
+    plan = bwd_launch_plan(dtype, cfg.head_dim, batch=2, heads=cfg.num_heads,
+                           kv_heads=cfg.num_kv_heads, seq=1024, kv_seq=1500)
+    assert isinstance(plan, FlashBwdPlan)
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan.width >= cfg.head_dim and plan.width == launch_plan(dtype, cfg.head_dim).width
+    assert plan.blocks_per_sm * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM
+    t = plan.tile
+    assert plan.grid_dq == (-(-1024 // t), cfg.num_heads, 2)
+    assert plan.grid_dkv == (-(-1500 // t), cfg.num_kv_heads, 2)
+
+
+def test_every_bwd_plan_is_an_instantiation():
+    """Every head dim the backward's plan takes maps to one (dtype, width,
+    tile, CTAs an SM) that ``flash_attention_bwd.cu`` instantiates."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    inst = set(re.findall(r"width == (\d+) && tile == (\d+)\) return "
+                          r"launch<(float|__nv_bfloat16), \d+, \d+, (\d+)>", src))
+    assert inst
+    names = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
+    seen = set()
+    for dtype in names:
+        for hd in range(8, 257, 8):
+            p = bwd_launch_plan(dtype, hd)
+            key = (str(p.width), str(p.tile), names[dtype], str(p.blocks_per_sm))
+            assert key in inst, key
+            seen.add(key)
+    assert seen == inst
+
+
+def _stand_in_kernels(monkeypatch):
+    """Route CPU tensors through the CUDA branch of ``flash_attention_op``
+    with the kernels' plain versions in their place; returns the calls."""
+    calls = {"fwd": 0, "fwd_lse": 0, "bwd": 0}
+
+    def fwd(q, k, v, *, return_lse=False, **kw):
+        calls["fwd_lse" if return_lse else "fwd"] += 1
+        return attention_fwd_ref(q, k, v, **kw) if return_lse else attention_ref(q, k, v, **kw)
+
+    def bwd(q, k, v, o, do, lse, **kw):
+        calls["bwd"] += 1
+        assert do.is_contiguous()
+        return attention_bwd_ref(q, k, v, o, do, lse, **kw)
+
+    monkeypatch.setattr(flash_ops, "all_on_cpu", lambda *t: False)
+    monkeypatch.setattr(flash_ops, "flash_attention", fwd)
+    monkeypatch.setattr(flash_ops, "flash_attention_bwd", bwd)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["gqa_causal_hd80", "window_softcap", "prefix_mid_tile",
+                                  "cross_sk_gt_s"])
+def test_autograd_function_gives_autograds_gradients(monkeypatch, name):
+    """On the CUDA route with grad wanted, ``flash_attention_op`` runs the
+    forward with lse and the backward entry point through its
+    autograd.Function: in the model's (b, s, heads, hd) layout, with GQA
+    and a non-contiguous dO, q, k and v get autograd's gradients through
+    the plain version."""
+    q, k, v, do, kw = _bwd_inputs(BWD_CASES[name], torch.float32)
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    do_l = do.transpose(1, 2)  # (b, s, h, d) view: not contiguous
+    assert not do_l.is_contiguous()
+    want = torch.autograd.grad(flash_attention_op(ql, kl, vl, **kw), (ql, kl, vl), do_l)
+    calls = _stand_in_kernels(monkeypatch)
+    out = flash_attention_op(ql, kl, vl, **kw)
+    got = torch.autograd.grad(out, (ql, kl, vl), do_l)
+    assert calls == {"fwd": 0, "fwd_lse": 1, "bwd": 1}
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-5 * float(w.abs().max()))
+
+
+def test_cuda_route_without_grad_runs_the_forward_alone(monkeypatch):
+    """No gradient wanted: the inference forward, no lse, no backward."""
+    q, k, v, _, kw = _bwd_inputs(BWD_CASES["mha_causal_hd64"], torch.float32)
+    calls = _stand_in_kernels(monkeypatch)
+    ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
+    flash_attention_op(ql, kl, vl, **kw)
+    with torch.no_grad():
+        flash_attention_op(*(t.requires_grad_(True) for t in (ql.clone(), kl, vl)), **kw)
+    assert calls == {"fwd": 2, "fwd_lse": 0, "bwd": 0}

@@ -81,7 +81,7 @@ def test_no_jax_or_repro_imports_in_port_sources():
 COPIED = (
     [f"core/{p.name}" for p in sorted((JAXPKG / "core").glob("*.py"))]
     + [f"configs/{p.name}" for p in sorted((JAXPKG / "configs").glob("*.py"))]
-    + ["models/config.py", "models/blocks.py"]
+    + ["models/config.py", "models/blocks.py", "data/__init__.py", "data/pipeline.py"]
     + [f"serving/{m}.py" for m in
        ("__init__", "api", "policy", "admission", "scheduler", "loadgen", "cluster")]
 )

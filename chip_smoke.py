@@ -277,11 +277,11 @@ def phase_build(ctx, torch, rt):
           "per_source_s": {k: round(v, 3) for k, v in secs.items()}})
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("Used" in line and "registers" in line) or "spill" in line:
                 print(f"ptxas[{name}]: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
         sass = sass_counts(_build, name)
         emit({"phase": "build", f"{name}_sass": sass})
         if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
@@ -2053,10 +2053,13 @@ def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
     must fail the same tolerance; ``q_scale`` scales q (scores of the
     softcap's size, where it bends them).  Times: the kernel (CUDA graph), the
     forward with and without lse, the plain backward, and SDPA's backward
-    by autograd (eager: events around one call)."""
+    by autograd, as device time (a CUDA graph of SDPA's forward and backward
+    less one of its forward) and eager (events around one call).  Prints
+    each kernel's grid, splits and CTAs an SM."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_bwd_ref, attention_ref,
                                                      flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.kernel import bwd_launch_plan, bwd_occupancy
 
     dev = torch.device("cuda")
     Sk = S if Sk is None else Sk
@@ -2125,18 +2128,44 @@ def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
     fwd_lse_ms = device_ms(torch, [lambda: flash_attention(qt, kt, vt, return_lse=True, **kw)])
     plain_ms = device_ms(torch, [lambda: attention_bwd_ref(qt, kt, vt, o, dot_c, lse, **kw)],
                          reps=5, per_graph=1)
-    library_ms = None
+    library_ms = library_eager_ms = None
     if softcap == 0.0:
         rep = nh // nkv
         ql, ke, ve = (x.detach().clone().requires_grad_(True) for x in
                       (qt, kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)))
         plain_causal = causal and prefix_len == 0 and Sk == S
         mask = None if window == 0 and (plain_causal or not causal) else allowed
-        out = F.scaled_dot_product_attention(ql, ke, ve, attn_mask=mask,
-                                             is_causal=mask is None and causal, scale=kw["scale"])
-        library_ms = eager_ms(torch, lambda: torch.autograd.grad(
+
+        def sdpa():
+            return F.scaled_dot_product_attention(ql, ke, ve, attn_mask=mask,
+                                                  is_causal=mask is None and causal,
+                                                  scale=kw["scale"])
+
+        out = sdpa()
+        library_eager_ms = eager_ms(torch, lambda: torch.autograd.grad(
             out, (ql, ke, ve), dot, retain_graph=True), reps=10, warmup=2)
         del out
+        try:
+            both = device_ms(torch, [lambda: torch.autograd.grad(sdpa(), (ql, ke, ve), dot)],
+                             reps=10, per_graph=2)
+            with torch.no_grad():
+                fwd_only = device_ms(torch, [sdpa], reps=10, per_graph=2)
+            library_ms = both - fwd_only
+        except RuntimeError as e:  # a backend that refuses graph capture
+            library_ms = f"not measured: {str(e).splitlines()[0][:200]}"
+    plan = bwd_launch_plan(dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk,
+                           sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    grid = {"width": plan.width, "dq": {"grid": plan.grid_q, "threads": plan.threads_q,
+                                        "split": plan.split_q, "smem": plan.smem_q},
+            "dkv": {"grid": plan.grid_kv, "threads": plan.threads_kv,
+                    "split": plan.split_kv, "col_split": plan.col_split,
+                    "smem": plan.smem_kv}}
+    for kern, occ in bwd_occupancy(dtype, hd).items():
+        grid[kern].update(occ)
+    print(f"flash_attention_bwd {label} ({dname}): dQ grid {plan.grid_q} split "
+          f"{plan.split_q}, {grid['dq']['ctas_per_sm']} CTA/SM, {grid['dq']['registers']} regs; "
+          f"dK/dV grid {plan.grid_kv} split {plan.split_kv} x {plan.col_split} columns, "
+          f"{grid['dkv']['ctas_per_sm']} CTA/SM, {grid['dkv']['registers']} regs", flush=True)
     case = {"kernel": "flash_attention_bwd", "case": label, "dtype": dname,
             "b": b, "nh": nh, "nkv": nkv, "S": S, "Sk": Sk, "hd": hd, "causal": causal,
             "window": window, "softcap": softcap, "prefix_len": prefix_len,
@@ -2152,7 +2181,9 @@ def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
             "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms, "library": "SDPA backward, eager"}
+            "library_ms": library_ms, "library_eager_ms": library_eager_ms,
+            "library": "SDPA backward (device: graph of forward + backward less forward)",
+            "plan": grid}
     ctx.cases.append(case)
     emit(case)
 
@@ -2350,17 +2381,9 @@ def _train_cli(ctx, torch, rt):
         fail(f"train CLI: resumed losses {rel} from the uninterrupted run's")
 
 
-def phase_train(ctx, torch, rt):
-    """Training: the flash backward kernel against its plain version at
-    the train shapes, a float32 train step against the CPU, bf16 training
-    at full width through the Trainer, the CLI's crash and resume, and the
-    SSM's refusal."""
-    import numpy as np
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.launch.steps import make_train_state, make_train_step
-    from repro_torch.models import build_model
-    from repro_torch.optim import OptimizerConfig
-
+def bwd_cases(ctx, torch):
+    """The flash backward against its plain version at the train shapes and
+    at the other paths' shapes: the first part of phase 11."""
     gen = torch.Generator(device="cuda").manual_seed(31)
     bf16, f32 = torch.bfloat16, torch.float32
     flash_bwd_case(ctx, torch, gen, "faas-bench S=256", 1, 6, 6, 256, 64, f32)
@@ -2383,6 +2406,19 @@ def phase_train(ctx, torch, rt):
                    Sk=1500, causal=False)
     _free(torch)
 
+
+def phase_train(ctx, torch, rt):
+    """Training: the flash backward kernel against its plain version at
+    the train shapes, a float32 train step against the CPU, bf16 training
+    at full width through the Trainer, the CLI's crash and resume, and the
+    SSM's refusal."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig
+
+    bwd_cases(ctx, torch)
     _train_parity(ctx, torch)
 
     # bf16 at full width through the Trainer: 2 + 2 flash launches a step

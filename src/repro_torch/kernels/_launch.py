@@ -1,11 +1,15 @@
 """What every kernel wrapper of the port shares: a thread-safe launch
-counter and the check of the C launcher's return code."""
+counter, the check of the C launcher's return code and the card's SM
+count."""
 
 from __future__ import annotations
 
 import threading
+from typing import Dict
 
 import torch
+
+_sms: Dict[int, int] = {}
 
 
 class LaunchCounter:
@@ -57,3 +61,11 @@ def all_on_cpu(*tensors: torch.Tensor) -> bool:
     if kinds == {"cuda"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of a CUDA device, read once per device."""
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n

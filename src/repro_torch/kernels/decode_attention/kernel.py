@@ -36,7 +36,7 @@ from typing import Dict, Tuple
 import torch
 
 from ... import _build
-from .._launch import LaunchCounter, check_launch, require_cuda
+from .._launch import LaunchCounter, check_launch, require_cuda, sm_count
 
 #: launches of the CUDA kernel, counted where it launches
 launches = LaunchCounter()
@@ -57,7 +57,6 @@ LONG_SLICES = 8         # slices a warp walks from which a call counts as long
 _ERRORS = {10003: "the launch plan matches no instantiation of the kernel"}
 _fn_cache = []
 _lock = threading.Lock()
-_sms: Dict[int, int] = {}
 _held: Dict[Tuple[int, torch.dtype, "DecodePlan"], int] = {}
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -204,13 +203,6 @@ def launch_plan(dtype: torch.dtype, batch: int, seq: int, heads: int, kv_heads: 
         return one
     return plan(next(h for h in (4, 2, 1) if kv_heads % h == 0 and
                      smem_layout(rows, head_dim, h)["smem"] <= SMEM_PER_BLOCK))
-
-
-def sm_count(dev: torch.device) -> int:
-    n = _sms.get(dev.index)
-    if n is None:
-        n = _sms[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return n
 
 
 def scratch_elements(sms: int) -> Tuple[int, int]:

@@ -29,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ... import _build
-from .._launch import LaunchCounter, check_launch, require_cuda
+from .._launch import LaunchCounter, check_launch, require_cuda, sm_count
 
 #: launches of the CUDA kernel, counted where it launches
 launches = LaunchCounter()
@@ -222,19 +222,42 @@ def flash_attention(
 
 # ---------------------------------------------------------------- backward
 #
-# ``csrc/flash_attention_bwd.cu``: a float32 pre-pass D = rowsum(dO * O),
-# then one CTA per (key tile, kv head, batch) for dK / dV, summing the
-# ``rep`` q heads of its group (no atomics), and one per (q tile, q head,
-# batch) for dQ.  No Pallas kernel has a backward: it is the port's
-# counterpart of JAX's recompute under ``jax.checkpoint`` in
+# ``csrc/flash_attention_bwd.cu``: a dQ kernel (which also writes each row's
+# lse and D = rowsum(dO * O) for the next), then a dK / dV kernel that sums
+# the ``rep`` q heads of a kv head's group in registers, both TMA-fed with
+# ``wgmma`` (bf16) or 3xTF32 ``mma.sync`` (float32) products, no atomics; where
+# the grid would leave the card's SMs idle, the q heads and q tiles of a key
+# tile (or the key tiles of a q tile) are split across CTAs that write
+# float32 partials, summed in split order by a third small kernel.  No
+# Pallas kernel has a backward: it is the port's counterpart of JAX's
+# recompute under ``jax.checkpoint`` in
 # ``repro.models.attention.blockwise_attention``.
 
-#: launches of the CUDA backward (one per call: its three kernels)
+#: launches of the CUDA backward (one per call: its two or three kernels)
 bwd_launches = LaunchCounter()
 
 #: the forward's lse of a row with no allowed key: its P is exp(s - 1e30) = 0
 LSE_EMPTY = 1e30
-BWD_THREADS = 256
+WARPGROUP = 128
+SMS = 132                    # H100 SXM: the plan's default SM count
+MAX_SPLIT = 16               # CTAs that may share one tile's work
+#: head-dim widths the backward is instantiated for, per element size; 80
+#: (stablelm-3b) ends in a 16-column product, so no product multiplies padding
+BWD_WIDTHS = {4: (32, 64, 80, 128, 256), 2: (64, 80, 128, 256)}
+#: per (element size, width): dK / dV warpgroups (64 keys each), q rows a
+#: step, stages, column halves; dQ warpgroups (64 q rows each), keys a step,
+#: stages.  ``flash_attention_bwd.cu``'s ``dispatch`` instantiates each.
+BWD_TILING = {
+    (2, 64): (2, 64, 3, 1, 2, 64, 3),
+    (2, 80): (2, 32, 4, 1, 2, 64, 3),
+    (2, 128): (1, 64, 2, 1, 2, 64, 3),
+    (2, 256): (1, 64, 2, 2, 1, 64, 2),
+    (4, 32): (2, 64, 3, 1, 2, 64, 3),
+    (4, 64): (2, 64, 2, 1, 2, 64, 2),
+    (4, 80): (2, 32, 2, 1, 2, 64, 2),
+    (4, 128): (1, 32, 2, 1, 2, 32, 2),
+    (4, 256): (1, 16, 2, 2, 1, 16, 2),
+}
 _bwd_fn_cache = []
 
 
@@ -243,57 +266,161 @@ class FlashBwdPlan:
     """How the backward runs one call."""
 
     head_dim: int
-    width: int               # instantiated head-dim width (zero-padded)
-    tile: int                # q rows and key rows of a step
-    smem_bytes: int          # dynamic shared memory of one CTA (either kernel)
-    blocks_per_sm: int       # CTAs an SM holds by shared memory
-    grid_dkv: Tuple[int, int, int]  # (key tiles, kv heads, batch)
-    grid_dq: Tuple[int, int, int]   # (q tiles, heads, batch)
-    threads: int = BWD_THREADS
+    width: int               # instantiated head-dim width (the products' N)
+    kv_warpgroups: int       # dK / dV CTA: consumer warpgroups, 64 keys each
+    tile_q: int              # dK / dV CTA: q rows a step
+    kv_stages: int           # dK / dV CTA: Q / dO tiles in flight
+    col_split: int           # CTAs sharing a key tile's dK / dV columns
+    q_warpgroups: int        # dQ CTA: consumer warpgroups, 64 q rows each
+    tile_k: int              # dQ CTA: keys a step
+    q_stages: int            # dQ CTA: K / V tiles in flight
+    smem_kv: int             # dynamic shared memory of a dK / dV CTA
+    smem_q: int              # dynamic shared memory of a dQ CTA
+    split_kv: int            # CTAs sharing a key tile's (q head, q tile) list
+    split_q: int             # CTAs sharing a q tile's key tiles
+    grid_kv: Tuple[int, int, int]  # (key tiles x split_kv x col_split, kv heads, batch)
+    grid_q: Tuple[int, int, int]   # (q tiles x split_q, heads, batch)
+
+    @property
+    def tile_kv(self) -> int:
+        """keys of a dK / dV CTA"""
+        return 64 * self.kv_warpgroups
+
+    @property
+    def tile_dq(self) -> int:
+        """q rows of a dQ CTA"""
+        return 64 * self.q_warpgroups
+
+    @property
+    def threads_kv(self) -> int:
+        return _threads(self.kv_warpgroups)
+
+    @property
+    def threads_q(self) -> int:
+        return _threads(self.q_warpgroups)
+
+    def s_pad(self, seq: int) -> int:
+        """q rows of the (lse, D) scratch: whole dQ tiles"""
+        return -(-seq // self.tile_dq) * self.tile_dq
+
+    def as_ints(self) -> Tuple[int, ...]:
+        """the launcher's plan array"""
+        return (self.kv_warpgroups, self.tile_q, self.kv_stages, self.col_split,
+                self.q_warpgroups, self.tile_k, self.q_stages, self.smem_kv, self.smem_q,
+                self.split_kv, self.split_q)
 
 
-def _bwd_smem(width: int, tile: int) -> int:
-    # K, V, Q, dO as float rows of width + 1; P and dS as rows of tile + 1;
-    # lse and D of the q tile
-    return (4 * tile * (width + 1) + 2 * tile * (tile + 1) + 2 * tile) * 4
+def _threads(warpgroups: int) -> int:
+    """Consumer warpgroups and the producer: one warp beside one warpgroup,
+    a whole warpgroup beside two (it hands its registers to them)."""
+    return warpgroups * WARPGROUP + (WARPGROUP if warpgroups == 2 else 32)
+
+
+def _smem_width(itemsize: int, width: int) -> int:
+    slab = SLAB_BYTES // itemsize
+    return -(-width // slab) * slab
+
+
+def bwd_smem(itemsize: int, width: int, kv_wg: int, tile_q: int, kv_stages: int,
+             q_wg: int, tile_k: int, q_stages: int) -> Tuple[int, int]:
+    """(dK / dV, dQ) dynamic shared memory: the resident tiles, the stages,
+    (lse, D) pairs or D, the mbarriers, 1024 bytes of alignment slack."""
+    row = _smem_width(itemsize, width) * itemsize
+    kv = (2 * 64 * kv_wg * row + kv_stages * (2 * tile_q * row + 8 * tile_q)
+          + 8 * (1 + 2 * kv_stages) + 1024)
+    q = (2 * 64 * q_wg * row + q_stages * 2 * tile_k * row + 4 * 64 * q_wg
+         + 8 * (1 + 2 * q_stages) + 1024)
+    return kv, q
+
+
+def _split(base: int, most: int, sms: int) -> int:
+    """CTAs to cut each of ``base`` units of work into (at most ``most``,
+    ``MAX_SPLIT``): none where the units fill the ``sms`` SMs (partials cost
+    a write and a read of each gradient per split), else the fewest waves
+    for the time a unit takes, ceil(base s / sms) / s, ties to the smaller
+    split."""
+    if base >= sms:
+        return 1
+    best, cost = 1, 1.0
+    for s in range(2, max(1, min(most, MAX_SPLIT)) + 1):
+        c = -(-base * s // sms) / s
+        if c < cost - 1e-9:
+            best, cost = s, c
+    return best
 
 
 @functools.lru_cache(maxsize=256)
 def bwd_launch_plan(dtype: torch.dtype, head_dim: int, *, batch: int = 1, heads: int = 1,
-                    kv_heads: int = 1, seq: int = 1, kv_seq: int = 1) -> FlashBwdPlan:
-    """The backward's launch plan: the forward's head-dim widths, tiles of
-    64 rows (32 at width 256, to fit shared memory)."""
-    fwd = launch_plan(dtype, head_dim)
-    width = fwd.width
-    tile = 32 if width == 256 else 64
-    smem = _bwd_smem(width, tile)
-    per_sm = max(1, min(2, SMEM_PER_SM // (smem + SMEM_RESERVED)))
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"head dim {head_dim}: the backward's tiles need {smem} bytes")
-    return FlashBwdPlan(head_dim=head_dim, width=width, tile=tile, smem_bytes=smem,
-                        blocks_per_sm=per_sm,
-                        grid_dkv=(-(-kv_seq // tile), kv_heads, batch),
-                        grid_dq=(-(-seq // tile), heads, batch))
+                    kv_heads: int = 1, seq: int = 1, kv_seq: int = 1,
+                    sms: int = SMS) -> FlashBwdPlan:
+    """The backward's launch plan on a card of ``sms`` SMs; raises
+    ``ValueError`` naming what the design cannot take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, got {dtype}")
+    itemsize = 4 if dtype == torch.float32 else 2
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim} is not a multiple of 8 in 8..{MAX_HEAD_DIM}: "
+                         "the tensor-core tiles take the head dim 8 at a time")
+    width = next(w for w in BWD_WIDTHS[itemsize] if w >= head_dim)
+    kv_wg, tile_q, kv_stages, col_split, q_wg, tile_k, q_stages = BWD_TILING[(itemsize, width)]
+    smem_kv, smem_q = bwd_smem(itemsize, width, kv_wg, tile_q, kv_stages, q_wg, tile_k,
+                               q_stages)
+    if max(smem_kv, smem_q) > SMEM_PER_BLOCK:
+        raise ValueError(f"head dim {head_dim}: the backward's tiles need "
+                         f"{max(smem_kv, smem_q)} bytes")
+    n_kt, n_qt = -(-kv_seq // (64 * kv_wg)), -(-seq // (64 * q_wg))
+    base_kv = n_kt * kv_heads * batch * col_split
+    split_kv = _split(base_kv, heads // kv_heads * -(-seq // tile_q), sms)
+    split_q = _split(n_qt * heads * batch, -(-kv_seq // tile_k), sms)
+    return FlashBwdPlan(head_dim=head_dim, width=width, kv_warpgroups=kv_wg, tile_q=tile_q,
+                        kv_stages=kv_stages, col_split=col_split, q_warpgroups=q_wg,
+                        tile_k=tile_k, q_stages=q_stages, smem_kv=smem_kv, smem_q=smem_q,
+                        split_kv=split_kv, split_q=split_q,
+                        grid_kv=(n_kt * split_kv * col_split, kv_heads, batch),
+                        grid_q=(n_qt * split_q, heads, batch))
 
 
-def bwd_q_tiles(kt: int, S: int, Sk: int, tile: int, *, causal: bool, window: int,
-                prefix_len: int) -> list:
-    """The q tiles the dK / dV kernel walks for key tile ``kt``: those whose
-    forward walk (``live_tiles`` at ``tile`` rows) holds it."""
-    return [qt for qt in range(-(-S // tile))
-            if kt in live_tiles(qt * tile, min(qt * tile + tile - 1, S - 1), Sk, tile,
-                                causal=causal, window=window, prefix_len=prefix_len)]
+def bwd_q_tiles(k0: int, k_last: int, S: int, tile_q: int, *, causal: bool, window: int,
+                prefix_len: int) -> range:
+    """The q tiles of ``tile_q`` rows that the dK / dV kernel walks for keys
+    ``k0 .. k_last``: those with an allowed pair, the forward's walk
+    transposed (a row's allowed keys are (q - window, max(q, prefix_len -
+    1)], both ends growing with q, so the tiles are a range)."""
+    n = -(-S // tile_q)
+    lo, hi = 0, n
+    if causal and k0 > prefix_len - 1:
+        lo = k0 // tile_q if k0 < S else n
+    if window > 0:
+        hi = min(hi, (k_last + window - 1) // tile_q + 1)
+    return range(lo, max(lo, hi))
 
 
 def _bwd_fn():
     if not _bwd_fn_cache:
-        fn = _build.load("flash_attention_bwd").flash_attention_bwd
+        lib = _build.load("flash_attention_bwd")
+        fn = lib.flash_attention_bwd
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
-                       f, i, i, i, f, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p,
+                       f, i, i, i, f, i, i, p, p]
         fn.restype = ctypes.c_int
-        _bwd_fn_cache.append(fn)
+        occ = lib.flash_attention_bwd_occupancy
+        occ.argtypes = [i, i, p]
+        occ.restype = ctypes.c_int
+        _bwd_fn_cache.extend((fn, occ))
     return _bwd_fn_cache[0]
+
+
+def bwd_occupancy(dtype: torch.dtype, head_dim: int) -> dict:
+    """Per kernel of the backward's instantiation for ``head_dim``: CTAs an
+    SM, registers a thread and spilled bytes, as the CUDA runtime reports
+    them (the card's current device)."""
+    plan = bwd_launch_plan(dtype, head_dim)
+    _bwd_fn()
+    out = (ctypes.c_int * 6)()
+    rc = _bwd_fn_cache[1](_DTYPES[dtype], plan.width, out)
+    check_launch("flash_attention_bwd_occupancy", rc)
+    return {"dq": {"ctas_per_sm": out[0], "registers": out[1], "spill_bytes": out[2]},
+            "dkv": {"ctas_per_sm": out[3], "registers": out[4], "spill_bytes": out[5]}}
 
 
 def flash_attention_bwd(
@@ -312,7 +439,9 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA backward on CUDA tensors; returns (dq, dk, dv) shaped
     like q, k, v (views of the model's (b, s, heads, hd) layout), in their
-    dtype.  Any (batch, head, seq) strides with a unit-stride head dim."""
+    dtype.  q, k, v and dO are read by TMA and o by 16-byte loads: any
+    (batch, head, seq) strides that are multiples of 16 bytes with a
+    unit-stride head dim."""
     dev = require_cuda("flash_attention_bwd", q, k, v, o, do, lse)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q (b, nh, S, hd), k / v (b, nkv, Sk, hd)")
@@ -333,23 +462,33 @@ def flash_attention_bwd(
     if code is None or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError(f"q, k, v, o, dO must share float32 or bfloat16, got "
                         f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
+    plan = bwd_launch_plan(q.dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk,
+                           sms=sm_count(dev))
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)):
-        if t.stride(3) != 1 and hd > 1:
-            raise ValueError(f"flash_attention_bwd: {name} needs a unit-stride head dim")
-    plan = bwd_launch_plan(q.dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk)
+        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+        if why:
+            raise ValueError(f"flash_attention_bwd: {why}")
     dq = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     dk = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     dv = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
-    delta = torch.empty((b, nh, S), dtype=torch.float32, device=dev)
+    s_pad = plan.s_pad(S)
+    ld = torch.empty((b, nh, s_pad, 2), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq_part = torch.empty((plan.split_q, b, nh, S, hd), **f32) if plan.split_q > 1 else None
+    dk_part, dv_part = ((torch.empty((plan.split_kv, b, nkv, Sk, hd), **f32) for _ in "kv")
+                        if plan.split_kv > 1 else (None, None))
+    ptr = [t.data_ptr() if t is not None else None for t in (dq_part, dk_part, dv_part)]
     strides = (ctypes.c_int64 * 24)(
-        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+        *(s for t in (q, k, v) for s in _tma_strides(t, hd)), *o.stride()[:3],
+        *_tma_strides(do, hd), *(s for t in (dq, dk, dv) for s in t.stride()[:3]))
+    plan_ints = (ctypes.c_int * 11)(*plan.as_ints())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _bwd_fn()(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                       lse.data_ptr(), delta.data_ptr(), b, nh, nkv, S, Sk, hd, strides,
+                       lse.data_ptr(), ld.data_ptr(), *ptr, b, nh, nkv, S, Sk, hd, strides,
                        float(scale), int(causal), int(window), int(prefix_len),
-                       float(softcap), plan.width, plan.tile, plan.smem_bytes, stream)
+                       float(softcap), plan.width, s_pad, plan_ints, stream)
     if rc in _ERRORS:
         raise RuntimeError(f"flash_attention_bwd: {_ERRORS[rc]} (error {rc})")
     check_launch("flash_attention_bwd", rc)

@@ -552,6 +552,11 @@ BWD_CASES = {
     "gqa_window_softcap": (1, 8, 2, 200, 200, 128, True, 48, 30.0, 0),
     "mqa_hd256_prefix": (1, 4, 1, 130, 130, 256, True, 0, 0.0, 77),
     "cross_sk_gt_s": (2, 4, 4, 40, 150, 64, False, 0, 0.0, 0),
+    # several tiles of each kernel, ragged S and Sk, splits of the grid
+    "multi_tile_gqa_causal_s300_sk450_hd80": (1, 4, 2, 300, 450, 80, True, 0, 0.0, 0),
+    "multi_tile_mqa_bidirectional_hd64": (2, 4, 1, 200, 333, 64, False, 0, 0.0, 0),
+    "multi_tile_window_softcap_hd128": (1, 4, 2, 260, 260, 128, True, 70, 30.0, 0),
+    "multi_tile_prefix_mqa_hd256": (1, 4, 1, 150, 150, 256, True, 0, 0.0, 77),
 }
 
 

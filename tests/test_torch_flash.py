@@ -22,6 +22,7 @@ card.  What can be checked here is its arithmetic and its launch plan:
   read is refused with its reason.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -430,9 +431,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_op,
 )
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    BWD_TILING,
+    BWD_WIDTHS,
+    MAX_SPLIT,
     FlashBwdPlan,
     bwd_launch_plan,
     bwd_q_tiles,
+    bwd_smem,
 )
 
 # (b, nh, nkv, S, Sk, hd, causal, window, softcap, prefix_len)
@@ -449,6 +454,16 @@ BWD_CASES = {
     "prefix_past_s": (1, 2, 2, 30, 30, 64, True, 0, 0.0, 50),
     "cross_sk_gt_s": (2, 4, 4, 20, 75, 64, False, 0, 0.0, 0),
     "causal_sk_gt_s": (1, 4, 2, 24, 50, 80, True, 0, 0.0, 0),
+}
+
+# several tiles of every kind, ragged S and Sk: the stage ring, the dK / dV
+# kernel's two warpgroups and its (q head, q tile) splits, the dQ kernel's
+# key splits
+MULTI_TILE_BWD_CASES = {
+    "multi_tile_gqa_causal_s300_sk450_hd80": (1, 4, 2, 300, 450, 80, True, 0, 0.0, 0),
+    "multi_tile_mqa_bidirectional_hd64": (2, 4, 1, 200, 333, 64, False, 0, 0.0, 0),
+    "multi_tile_window_softcap_hd128": (1, 4, 2, 260, 260, 128, True, 70, 30.0, 0),
+    "multi_tile_prefix_mqa_hd256": (1, 4, 1, 150, 150, 256, True, 0, 0.0, 77),
 }
 
 
@@ -478,6 +493,204 @@ def test_attention_bwd_ref_matches_float64_autograd(name):
         assert g.dtype == torch.float32 and g.shape == w.shape
         err = float((g.double() - w).abs().max())
         assert err <= 5e-6 * float(w.abs().max()), (what, err)
+
+
+def split_range(n, splits, c):
+    """Share ``c`` of ``splits`` of ``n`` items, as the kernels cut a tile's
+    work list (``it0`` / ``it1`` and ``j0`` / ``j1`` in the CUDA source)."""
+    return range(n * c // splits, n * (c + 1) // splits)
+
+
+def _tiles_meet(q0, q_last, k0, k_last, *, causal, window, prefix_len):
+    """The kernels' test of a (q rows, keys) pair of tiles: does some pair
+    meet the masks?  (A row's allowed keys are (q - window, max(q,
+    prefix_len - 1)], both ends growing with q.)"""
+    ok = q0 <= q_last and k0 <= k_last
+    if causal:
+        ok = ok and k0 <= max(q_last, prefix_len - 1)
+    if window > 0:
+        ok = ok and k_last >= q0 - window + 1
+    return ok
+
+
+def _p_ds(s, dp, lse, d, ok, *, scale, softcap, rnd):
+    """P and dS of the scores s = q . k and dp = dO . v (rows q, columns
+    keys; lse and D per row), 0 where ``ok`` is False (None: unmasked): dS =
+    pf (dP - D) with pf = P (1 - tanh^2), rounded by ``rnd`` first (the bf16
+    path keeps pf in packed bf16 registers)."""
+    x = s * scale
+    th = None
+    if softcap > 0.0:
+        th = torch.tanh(x / softcap)
+        x = softcap * th
+    p = torch.exp(x - lse[..., None])
+    if ok is not None:
+        p = torch.where(ok, p, torch.zeros_like(p))
+    pf = p if th is None else p * (1.0 - th * th)
+    return p, rnd(pf) * (dp - d[..., None])
+
+
+def emulate_bwd(q, k, v, o, do, lse, *, scale, causal, window, softcap, arith,
+                prefix_len=0, sms=132):
+    """The backward kernels' arithmetic on (b, nh, S, hd) float32 tensors
+    (holding bf16 values for ``arith="bf16"``), in the plan's tile walk:
+
+    - D = rowsum(dO * O) in float32 (the dQ kernel's prologue);
+    - dQ: per q tile of ``tile_dq`` rows and each of its 64-row warpgroups,
+      over the key tiles of ``tile_k`` keys its walk visits (``live_tiles``),
+      in ``split_q`` shares summed in split order; S = Q.K^T, dP = dO.V^T,
+      P and dS (masked only where ``tile_needs_mask`` says), dQ += dS.K;
+    - dK / dV: per key tile of ``tile_kv`` keys and each of its 64-key
+      warpgroups, over the (q head of the group, q tile of ``tile_q`` rows)
+      list its walk visits (``bwd_q_tiles``), in ``split_kv`` shares summed
+      in split order; dV += P^T.dO, dK += dS^T.Q;
+
+    P, P (1 - tanh^2) and dS rounded to bf16 on the bf16 path; every
+    product 3xTF32 (``arith="3xtf32"``), one TF32 term (``"tf32"``, the
+    control) or exact f32 sums of bf16 values (``"bf16"``)."""
+    b, nh, S, hd = q.shape
+    nkv, Sk = k.shape[1], k.shape[2]
+    rep = nh // nkv
+    dtype = torch.bfloat16 if arith == "bf16" else torch.float32
+    plan = bwd_launch_plan(dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk,
+                           sms=sms)
+    walk = dict(causal=causal, window=window, prefix_len=prefix_len)
+    rnd = (lambda x: x.bfloat16().float()) if arith == "bf16" else (lambda x: x)
+    ew = dict(scale=scale, softcap=softcap, rnd=rnd)
+    mm = functools.partial(_matmul, arith=arith)
+    delta = (do * o).sum(-1)
+    kx, vx = (x.repeat_interleave(rep, dim=1) for x in (k, v))
+
+    def ok(qpos, kpos, q0, q_last, k0, tile):
+        if not tile_needs_mask(k0, q0, q_last, Sk, tile, **walk):
+            return None
+        return _allowed(torch.as_tensor(qpos)[:, None], torch.as_tensor(kpos)[None, :], **walk)
+
+    dq = torch.zeros_like(q)
+    for q0 in range(0, S, plan.tile_dq):
+        q_last = min(q0 + plan.tile_dq, S) - 1
+        tiles = list(live_tiles(q0, q_last, Sk, plan.tile_k, **walk))
+        total = 0.0
+        for c in range(plan.split_q):
+            acc = torch.zeros((b, nh, q_last + 1 - q0, hd))
+            for kt in (tiles[i] for i in split_range(len(tiles), plan.split_q, c)):
+                k0 = kt * plan.tile_k
+                k1 = min(k0 + plan.tile_k, Sk)
+                kb, vb = kx[:, :, k0:k1], vx[:, :, k0:k1]
+                for w0 in range(q0, q_last + 1, 64):
+                    w1 = min(w0 + 64, q_last + 1)
+                    if not _tiles_meet(w0, w1 - 1, k0, k1 - 1, **walk):
+                        continue
+                    s = mm(q[:, :, w0:w1], kb.transpose(-1, -2))
+                    dp = mm(do[:, :, w0:w1], vb.transpose(-1, -2))
+                    _, ds = _p_ds(s, dp, lse[:, :, w0:w1], delta[:, :, w0:w1],
+                                  ok(range(w0, w1), range(k0, k1), w0, w1 - 1, k0,
+                                     plan.tile_k), **ew)
+                    acc[:, :, w0 - q0:w1 - q0] += mm(rnd(ds), kb)
+            total = acc if plan.split_q == 1 else total + acc
+        dq[:, :, q0:q_last + 1] = total * scale
+
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    qg, dog = (x.reshape(b, nkv, rep, S, hd) for x in (q, do))
+    lg, dg = (x.reshape(b, nkv, rep, S) for x in (lse, delta))
+    for k0 in range(0, Sk, plan.tile_kv):
+        k_last = min(k0 + plan.tile_kv, Sk) - 1
+        qts = bwd_q_tiles(k0, k_last, S, plan.tile_q, **walk)
+        items = [(r, qt) for r in range(rep) for qt in qts]
+        tot_k = tot_v = 0.0
+        for c in range(plan.split_kv):
+            ak = torch.zeros((b, nkv, k_last + 1 - k0, hd))
+            av = torch.zeros_like(ak)
+            for r, qt in (items[i] for i in split_range(len(items), plan.split_kv, c)):
+                t0, t1 = qt * plan.tile_q, min(qt * plan.tile_q + plan.tile_q, S)
+                qb, gb = qg[:, :, r, t0:t1], dog[:, :, r, t0:t1]
+                for w0 in range(k0, k_last + 1, 64):
+                    w1 = min(w0 + 64, k_last + 1)
+                    if not _tiles_meet(t0, t1 - 1, w0, w1 - 1, **walk):
+                        continue
+                    kb, vb = k[:, :, w0:w1], v[:, :, w0:w1]
+                    # S^T and dP^T as the kernel forms them, P^T and dS^T
+                    st = mm(kb, qb.transpose(-1, -2)).transpose(-1, -2)
+                    dpt = mm(vb, gb.transpose(-1, -2)).transpose(-1, -2)
+                    p, ds = _p_ds(st, dpt, lg[:, :, r, t0:t1], dg[:, :, r, t0:t1],
+                                  ok(range(t0, t1), range(w0, w1), t0, t1 - 1, w0, 64), **ew)
+                    av[:, :, w0 - k0:w1 - k0] += mm(rnd(p).transpose(-1, -2), gb)
+                    ak[:, :, w0 - k0:w1 - k0] += mm(rnd(ds).transpose(-1, -2), qb)
+            if plan.split_kv == 1:
+                tot_k, tot_v = ak, av
+            else:
+                tot_k, tot_v = tot_k + ak, tot_v + av
+        dk[:, :, k0:k_last + 1] = tot_k * scale
+        dv[:, :, k0:k_last + 1] = tot_v
+    return dq, dk, dv
+
+
+def _emulated_bwd_and_oracle(case, dtype, arith=None, sms=132):
+    """(emulated (dq, dk, dv), float64 autograd through ``attention_ref``)
+    from one seeded set of inputs, rounded to bf16 for the bf16 path; o and
+    lse from the plain forward, o in the working dtype as the card has it."""
+    q, k, v, do, kw = _bwd_inputs(case)
+    if dtype == "bfloat16":
+        q, k, v, do = (x.bfloat16().double() for x in (q, k, v, do))
+    x64 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*x64, **kw), x64, do)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o, lse = attention_fwd_ref(q32, k32, v32, **kw)
+    o = o.to(_TORCH[dtype]).float()
+    arith = arith or ("3xtf32" if dtype == "float32" else "bf16")
+    got = emulate_bwd(q32, k32, v32, o, do32, lse, arith=arith, sms=sms, **kw)
+    return got, want
+
+
+def _rel_err(got, want):
+    """max over dq, dk, dv of max|got - want| / max|want|"""
+    return max(float((g.double() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(BWD_CASES) + sorted(MULTI_TILE_BWD_CASES))
+def test_emulated_bwd_matches_float64_autograd(name, dtype):
+    """The backward kernels' arithmetic and tile walk (splits as the plan
+    cuts them for the H100's 132 SMs) against float64 autograd through
+    ``attention_ref``: f32 5e-5, bf16 2e-2 of each gradient's largest entry
+    (P and dS rounded to bf16 before their products)."""
+    case = {**BWD_CASES, **MULTI_TILE_BWD_CASES}[name]
+    got, want = _emulated_bwd_and_oracle(case, dtype)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+    err = _rel_err(got, want)
+    assert err <= (5e-5 if dtype == "float32" else 2e-2), err
+
+
+@pytest.mark.parametrize("name", sorted(MULTI_TILE_BWD_CASES))
+def test_emulated_bwd_splits_sum_what_one_cta_sums(name):
+    """The multi-tile cases cross the splits (at 132 SMs) and, on a card of
+    one SM, run unsplit: both walks give the same gradients to float32
+    summation order."""
+    case = MULTI_TILE_BWD_CASES[name]
+    b, nh, nkv, S, Sk, hd = case[:6]
+    many = bwd_launch_plan(torch.float32, hd, batch=b, heads=nh, kv_heads=nkv, seq=S,
+                           kv_seq=Sk)
+    one = bwd_launch_plan(torch.float32, hd, batch=b, heads=nh, kv_heads=nkv, seq=S,
+                          kv_seq=Sk, sms=1)
+    assert (one.split_kv, one.split_q) == (1, 1)
+    assert many.split_kv > 1 or many.split_q > 1
+    split, _ = _emulated_bwd_and_oracle(case, "float32")
+    whole, _ = _emulated_bwd_and_oracle(case, "float32", sms=1)
+    for a, c in zip(split, whole):
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["gqa_causal_hd80", "window_softcap",
+                                  "multi_tile_gqa_causal_s300_sk450_hd80"])
+def test_single_term_tf32_fails_the_bwd_float32_tolerance(name):
+    """The control: the backward with one TF32 term per product misses 5e-5
+    where 3xTF32 meets it."""
+    case = {**BWD_CASES, **MULTI_TILE_BWD_CASES}[name]
+    got, want = _emulated_bwd_and_oracle(case, "float32")
+    assert _rel_err(got, want) <= 5e-5
+    single, _ = _emulated_bwd_and_oracle(case, "float32", arith="tf32")
+    assert _rel_err(single, want) > 5e-5
 
 
 def test_attention_bwd_ref_controls_fail():
@@ -523,8 +736,9 @@ def test_lse_of_a_row_without_keys_gives_zero_gradient():
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
 def test_bwd_tile_walk_covers_every_allowed_pair(tile, causal):
     """The dK / dV kernel's walk (``bwd_q_tiles``: the forward's walk
-    transposed) and the dQ kernel's (``live_tiles``) visit the same (q
-    tile, key tile) pairs; every allowed (q, k) pair lies in one, and every
+    transposed, up to the last real key) visits the dQ kernel's (``live_tiles``)
+    (q tile, key tile) pairs but those without an allowed pair; every
+    allowed (q, k) pair lies in one, and every
     disallowed pair of a visited pair of tiles lies in one the kernels
     mask (``tile_needs_mask``).  Over lengths, key lengths, prefixes (mid
     tile, on an edge, past S) and windows."""
@@ -541,8 +755,15 @@ def test_bwd_tile_walk_covers_every_allowed_pair(tile, causal):
                            for kt in live_tiles(qt * tile, min(qt * tile + tile, S) - 1, Sk,
                                                 tile, **walk)}
                     bwd = {(qt, kt) for kt in range(n_k)
-                           for qt in bwd_q_tiles(kt, S, Sk, tile, **walk)}
-                    assert fwd == bwd, (S, Sk, prefix_len, window)
+                           for qt in bwd_q_tiles(kt * tile, min(kt * tile + tile, Sk) - 1, S,
+                                                 tile, **walk)}
+                    # the dK / dV walk stops at the last real key, so it may
+                    # leave out a forward pair that holds only padded keys
+                    assert bwd <= fwd, (S, Sk, prefix_len, window)
+                    for qt, kt in fwd - bwd:
+                        assert not allowed[qt * tile:(qt + 1) * tile,
+                                           kt * tile:(kt + 1) * tile].any()
+                    _check_unequal_bwd_tiles(allowed, S, Sk, tile, walk)
                     for qt in range(n_q):
                         q0, q_last = qt * tile, min(qt * tile + tile, S) - 1
                         for kt in range(n_k):
@@ -558,41 +779,122 @@ def test_bwd_tile_walk_covers_every_allowed_pair(tile, causal):
     assert checked > 400
 
 
+def _check_unequal_bwd_tiles(allowed, S, Sk, tile_k, walk):
+    """The dK / dV walk at the plans' unequal tiles (q tiles of 16, 32 or 64
+    rows, key tiles of 64 or 128 keys in 64-key warpgroups): every allowed
+    pair lies in a visited (q tile, key tile) whose warpgroup meets it, no
+    visited pair of tiles is without an allowed pair, and every disallowed
+    pair of a visited warpgroup tile is masked.  The dQ walk (``live_tiles``
+    at ``tile_k`` keys, 64-row warpgroups of a 128-row tile) likewise."""
+    for tile_q in (16, 32, 64):
+        for tile_kv in (64, 128):
+            seen = torch.zeros_like(allowed)
+            for k0 in range(0, Sk, tile_kv):
+                k_last = min(k0 + tile_kv, Sk) - 1
+                qts = bwd_q_tiles(k0, k_last, S, tile_q, **walk)
+                for qt in range(-(-S // tile_q)):
+                    q0, q_last = qt * tile_q, min(qt * tile_q + tile_q, S) - 1
+                    block = allowed[q0:q_last + 1, k0:k_last + 1]
+                    assert (qt in qts) == bool(block.any()), (S, Sk, walk, tile_q, k0, qt)
+                    if qt not in qts:
+                        continue
+                    for w0 in range(k0, k_last + 1, 64):
+                        w_last = min(w0 + 63, k_last)
+                        sub = allowed[q0:q_last + 1, w0:w_last + 1]
+                        assert _tiles_meet(q0, q_last, w0, w_last, **walk) == bool(sub.any())
+                        if not sub.all() or w0 + 64 > Sk:
+                            if sub.any():
+                                assert tile_needs_mask(w0, q0, q_last, Sk, 64, **walk)
+                        seen[q0:q_last + 1, w0:w_last + 1] |= sub
+            assert torch.equal(seen, allowed)
+    seen = torch.zeros_like(allowed)
+    for q0 in range(0, S, 128):
+        q_last = min(q0 + 128, S) - 1
+        for kt in live_tiles(q0, q_last, Sk, tile_k, **walk):
+            k0, k_last = kt * tile_k, min(kt * tile_k + tile_k, Sk) - 1
+            for w0 in range(q0, q_last + 1, 64):
+                w_last = min(w0 + 63, q_last)
+                sub = allowed[w0:w_last + 1, k0:k_last + 1]
+                assert _tiles_meet(w0, w_last, k0, k_last, **walk) == bool(sub.any())
+                if sub.any() and (not sub.all() or k0 + tile_k > Sk):
+                    assert tile_needs_mask(k0, w0, w_last, Sk, tile_k, **walk)
+                seen[w0:w_last + 1, k0:k_last + 1] |= sub
+    assert torch.equal(seen, allowed)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("name,cfg", _attention_configs(), ids=lambda x: x
                          if isinstance(x, str) else "")
 def test_bwd_plan_takes_every_config(name, cfg, dtype):
     """Every attention configuration of the port gets a backward plan whose
-    shared memory fits a block: the four operand tiles as float rows of
-    width + 1, P and dS, lse and D."""
+    two kernels fit a block's shared memory (resident tiles, the stages,
+    (lse, D), the mbarriers), with a grid that cuts no tile's work into more
+    than MAX_SPLIT CTAs."""
     plan = bwd_launch_plan(dtype, cfg.head_dim, batch=2, heads=cfg.num_heads,
                            kv_heads=cfg.num_kv_heads, seq=1024, kv_seq=1500)
     assert isinstance(plan, FlashBwdPlan)
-    assert plan.smem_bytes <= SMEM_PER_BLOCK
-    assert plan.width >= cfg.head_dim and plan.width == launch_plan(dtype, cfg.head_dim).width
-    assert plan.blocks_per_sm * (plan.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM
-    t = plan.tile
-    assert plan.grid_dq == (-(-1024 // t), cfg.num_heads, 2)
-    assert plan.grid_dkv == (-(-1500 // t), cfg.num_kv_heads, 2)
+    assert max(plan.smem_kv, plan.smem_q) <= SMEM_PER_BLOCK
+    assert plan.width >= cfg.head_dim and plan.width in BWD_WIDTHS[dtype.itemsize]
+    assert plan.width - cfg.head_dim < 64          # no whole slab of padding
+    assert (plan.smem_kv, plan.smem_q) == bwd_smem(dtype.itemsize, plan.width,
+                                                   *BWD_TILING[(dtype.itemsize, plan.width)][:3],
+                                                   *BWD_TILING[(dtype.itemsize, plan.width)][4:])
+    assert 1 <= plan.split_kv <= MAX_SPLIT and 1 <= plan.split_q <= MAX_SPLIT
+    assert plan.grid_q == (-(-1024 // plan.tile_dq) * plan.split_q, cfg.num_heads, 2)
+    assert plan.grid_kv == (-(-1500 // plan.tile_kv) * plan.split_kv * plan.col_split,
+                            cfg.num_kv_heads, 2)
+    assert plan.s_pad(1024) % plan.tile_q == 0 and plan.s_pad(1024) >= 1024
+    # the dK / dV CTA's columns are whole 64-column slabs when split
+    assert plan.col_split == 1 or plan.width // plan.col_split % 64 == 0
+    assert {plan.threads_kv, plan.threads_q} <= {128 + 32, 3 * 128}
 
 
 def test_every_bwd_plan_is_an_instantiation():
     """Every head dim the backward's plan takes maps to one (dtype, width,
-    tile, CTAs an SM) that ``flash_attention_bwd.cu`` instantiates."""
+    dK / dV warpgroups, q rows, stages, column halves, dQ warpgroups, keys,
+    stages) that ``flash_attention_bwd.cu`` instantiates."""
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
            / "flash_attention_bwd.cu").read_text()
-    inst = set(re.findall(r"width == (\d+) && tile == (\d+)\) return "
-                          r"launch<(float|__nv_bfloat16), \d+, \d+, (\d+)>", src))
+    inst = set(re.findall(r"width == (\d+)\) return f\(Instance<(float|__nv_bfloat16), "
+                          r"(\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+), (\d+)>", src))
     assert inst
+    assert all(w == w2 for w, _, w2, *_ in inst)
     names = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
     seen = set()
     for dtype in names:
         for hd in range(8, 257, 8):
             p = bwd_launch_plan(dtype, hd)
-            key = (str(p.width), str(p.tile), names[dtype], str(p.blocks_per_sm))
+            key = (str(p.width), names[dtype], str(p.width), *map(str, p.as_ints()[:7]))
             assert key in inst, key
             seen.add(key)
     assert seen == inst
+
+
+# the chip run's backward shapes (b, nh, nkv, S, Sk, hd, dtype): each kernel's
+# grid fills the H100's 132 SMs, or its split is as deep as the work allows
+CHIP_BWD_SHAPES = {
+    "stablelm_train": (4, 32, 32, 1024, 1024, 80, torch.bfloat16),
+    "gqa_32_8": (1, 32, 8, 1024, 1024, 128, torch.bfloat16),
+    "paligemma_mqa": (1, 8, 1, 512, 512, 256, torch.bfloat16),
+    "whisper_encoder": (1, 12, 12, 1500, 1500, 64, torch.bfloat16),
+    "whisper_cross": (1, 12, 12, 64, 1500, 64, torch.bfloat16),
+    "faas_bench_f32": (1, 6, 6, 256, 256, 64, torch.float32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHIP_BWD_SHAPES))
+def test_bwd_grid_fills_the_card(name):
+    b, nh, nkv, S, Sk, hd, dtype = CHIP_BWD_SHAPES[name]
+    p = bwd_launch_plan(dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk)
+    most_kv = min(MAX_SPLIT, nh // nkv * -(-S // p.tile_q))
+    most_q = min(MAX_SPLIT, -(-Sk // p.tile_k))
+    ctas_kv, ctas_q = p.grid_kv[0] * nkv * b, p.grid_q[0] * nh * b
+    assert ctas_kv >= 0.75 * 132 or p.split_kv == most_kv, (p.grid_kv, p.split_kv)
+    assert ctas_q >= 0.75 * 132 or p.split_q == most_q, (p.grid_q, p.split_q)
+    if ctas_kv // p.split_kv >= 132:
+        assert p.split_kv == 1
+    if ctas_q // p.split_q >= 132:
+        assert p.split_q == 1
 
 
 def _stand_in_kernels(monkeypatch):

@@ -10,8 +10,11 @@ Phases, each of which passes or makes the script exit non-zero:
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``; the
    count of HGMMA and HMMA instructions in the flash and ssd_scan
    libraries' SASS, which must show both in each (wgmma for bf16, mma.sync
-   for the 3xTF32 float32 path); for the int8 library the I2F count (and
-   each I2F variant apart: integer division emits them too), PRMT and HMMA;
+   for the 3xTF32 float32 path); for the ssd_scan backward the FFMA,
+   HMMA and HGMMA counts (its products run on the CUDA cores); for the
+   int8 library the I2F count (and each I2F variant apart: integer
+   division emits them too), PRMT and HMMA; ptxas's registers and spills
+   of every kernel;
 3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
    decode_attention_int8) against their plain PyTorch versions on the card,
    at their paths' shapes (patch also at olmoe-1b-7b's embed/table and
@@ -110,15 +113,31 @@ Phases, each of which passes or makes the script exit non-zero:
    zeroed just before and read just after: 2 flash forwards and 2
    backwards a step), and 10 float32 steps of faas-bench whole; crash at
    step 17 and resume through ``python -m repro_torch.launch.train``, whose
-   resumed losses must equal an uninterrupted run's at rtol 1e-4; a mamba2
-   train step on the card must raise (no ``ssd_scan`` backward yet);
+   resumed losses must equal an uninterrupted run's at rtol 1e-4; then the
+   SSM families: the ``ssd_scan`` backward (``ssd_scan_bwd``) against its
+   plain version and float64 autograd through the plain forward at
+   mamba2-780m's train shape (b 4 x l 1024, bf16 and f32), at its float32
+   step's shape (where the kernel called on each chunk alone, the
+   inter-chunk state gradient dropped, must fail), at jamba-v0.1-52b's
+   width (bf16 and f32) and over 32 chunks (f32 5e-5, dA 1e-4, bf16 2e-2
+   of each gradient's largest entry), two calls bit-equal; one
+   float32 mamba2-780m step at full width (2 layers, b 2 x S 512: two
+   chunks) against a CPU step whose SSD scan runs in float64, where that
+   chunkwise backward must fail; mamba2-780m whole (48 layers, bf16, b 4
+   x S 1024, 10 steps, AdamW, no checkpoints: 48 ``ssd_scan_bwd`` launches
+   a step); one jamba-v0.1-52b period (8 layers, bf16, b 1 x S 1024, 3
+   steps, Adafactor accumulating in bf16: 1 flash forward and backward, 7
+   ``ssd_scan`` forwards and backwards a step); each of the two with one
+   more step profiled (device busy time, idle share, the kernels that
+   hold it, each SSD kernel's launches and time: the backward's four CUDA
+   kernels once per mamba layer);
 12. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
 Then the ``{"kernels": [...]}`` summary (each kernel with its launches on
 the path named, and on every path), the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.
 
-About 7.5 minutes on one H100, the kernels' build included.
+About 9 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -286,6 +305,9 @@ def phase_build(ctx, torch, rt):
         emit({"phase": "build", f"{name}_sass": sass})
         if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
             fail(f"{name}'s SASS lacks tensor-core instructions: {sass}")
+    # the SSD backward runs float32 FMAs on the CUDA cores, no tensor cores
+    emit({"phase": "build", "ssd_scan_bwd_sass": sass_counts(
+        _build, "ssd_scan_bwd", ("FFMA", "HMMA", "HGMMA"))})
     # the int8 kernel converts int8 to float by a byte permute; integer
     # division emits I2F too, so each I2F variant is counted apart
     emit({"phase": "build", "decode_attention_int8_sass": sass_counts(
@@ -834,6 +856,7 @@ def _counters():
             "flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "ssd_scan": ssd.launches,
+            "ssd_scan_bwd": ssd.bwd_launches,
             "decode_attention_int8": decode_attention.launches}
 
 
@@ -2232,17 +2255,101 @@ def _leaf_errs(np, got, want):
     return out
 
 
-def _train_parity(ctx, torch):
-    """One float32 train step of stablelm-3b at full width (2 layers, b 2 x
-    S 256) on the card and on the CPU from the same state and batch."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.launch.steps import make_train_state, make_train_step, value_and_grad
-    from repro_torch.models import build_model, transformer
+@contextlib.contextmanager
+def _attention_detached():
+    """Attention's output detached from q, k, v: the route before the flash
+    backward existed."""
     from repro_torch.kernels.flash_attention import flash_attention_op
+    from repro_torch.models import transformer
+
+    orig = transformer.flash_attention_op
+    transformer.flash_attention_op = lambda q, k, v, **kw: flash_attention_op(
+        q.detach(), k.detach(), v.detach(), **kw)
+    try:
+        yield
+    finally:
+        transformer.flash_attention_op = orig
+
+
+def _ssd_bwd_chunkwise(x, dt, A, B, C, D, dy, dstate, cs, s_in, *, chunk):
+    """The backward kernel called on each chunk alone: every chunk keeps its
+    entering state, and the gradient of the state it passes on is dropped
+    (only the last chunk sees ``dstate``)."""
+    import torch
+    from repro_torch.kernels.ssd import ssd_scan_bwd
+
+    l = x.shape[1]
+    c = min(chunk, l)
+    nc = l // c
+    parts = []
+    for k in range(nc):
+        t = slice(k * c, (k + 1) * c)
+        parts.append(ssd_scan_bwd(x[:, t], dt[:, t], A, B[:, t], C[:, t], D,
+                                  dy[:, t].contiguous(), dstate if k == nc - 1 else None,
+                                  cs[:, k:k + 1].contiguous(), s_in[:, k:k + 1].contiguous(),
+                                  chunk=c))
+    return (torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1),
+            sum(p[2] for p in parts), torch.cat([p[3] for p in parts], 1),
+            torch.cat([p[4] for p in parts], 1), sum(p[5] for p in parts))
+
+
+@contextlib.contextmanager
+def _ssd_carry_dropped():
+    """``_SsdScan``'s backward chunk by chunk (``_ssd_bwd_chunkwise``)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    orig = ssd_ops.ssd_scan_bwd
+    ssd_ops.ssd_scan_bwd = _ssd_bwd_chunkwise
+    try:
+        yield
+    finally:
+        ssd_ops.ssd_scan_bwd = orig
+
+
+@contextlib.contextmanager
+def _ssd_float64_on_cpu():
+    """The SSD scan of CPU tensors through ``_SsdScan`` with the plain
+    forward and backward computed in float64.  The CPU's own route, float32
+    autograd through the plain forward, sums dL/da per row and in reverse:
+    at mamba2-780m's width its A_log gradient lies 3.3e-4 of the leaf's
+    largest entry from this one, the kernel's decomposition in float32
+    2.9e-5 (tests/test_torch_ssd_bwd.py measures the op)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd_bwd_ref, ssd_ref
+
+    def forward(x, dt, A, B, C, D, *, chunk):
+        y, state = ssd_ref(*(t.double() for t in (x, dt, A, B, C, D)), chunk=chunk)
+        return y.to(x.dtype), state.float(), None, None
+
+    def backward(x, dt, A, B, C, D, dy, dstate, cs, s_in, *, chunk):
+        ins = (x, dt, A, B, C, D)
+        grads = ssd_bwd_ref(*(t.double() for t in ins + (dy,)),
+                            None if dstate is None else dstate.double(), chunk=chunk)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, ins))
+
+    saved = (ssd_ops.all_on_cpu, ssd_ops.ssd_scan_for_grad, ssd_ops.ssd_scan_bwd)
+    ssd_ops.all_on_cpu = lambda *t: False
+    ssd_ops.ssd_scan_for_grad, ssd_ops.ssd_scan_bwd = forward, backward
+    try:
+        yield
+    finally:
+        ssd_ops.all_on_cpu, ssd_ops.ssd_scan_for_grad, ssd_ops.ssd_scan_bwd = saved
+
+
+def _train_parity(ctx, torch, cfg, batch, seq, control, control_name, control_leaves,
+                  cpu_route=contextlib.nullcontext):
+    """One float32 train step at full width on the card and on the CPU from
+    the same state and batch (b ``batch`` x S ``seq``); the CPU runs under
+    ``cpu_route`` (the mamba2 step's: its SSD scan in float64, where the
+    CPU's own float32 route is reported beside it); under ``control`` (a
+    context manager, a fault in the card's backward) the gradient of every
+    leaf whose last path part is in ``control_leaves`` must miss the
+    tolerance.  Returns the emitted row."""
+    import numpy as np
+    from repro_torch.launch.steps import make_train_state, make_train_step, value_and_grad
+    from repro_torch.models import build_model
     from repro_torch.optim import OptimizerConfig
 
-    cfg = dataclasses.replace(get_config("stablelm-3b"), num_layers=2, dtype="float32")
     model = build_model(cfg)
     # eps 1: the update is about lr * g, so updated parameters compare the
     # step's arithmetic and not AdamW's sign-like first update of entries
@@ -2251,54 +2358,103 @@ def _train_parity(ctx, torch):
     cpu = make_train_state(model, opt, 0, device="cpu")
     gpu = _to_device(cpu, "cuda")
     rng = np.random.default_rng(21)
-    tok = rng.integers(0, cfg.vocab_size, (2, 257), dtype=np.int32)
+    tok = rng.integers(0, cfg.vocab_size, (batch, seq + 1), dtype=np.int32)
     batch = {"tokens": torch.from_numpy(tok[:, :-1]), "labels": torch.from_numpy(tok[:, 1:])}
     gbatch = {k: v.cuda() for k, v in batch.items()}
     t0 = time.perf_counter()
-    _, g_cpu = value_and_grad(model, cpu["params"], batch)
+    with cpu_route():
+        _, g_cpu = value_and_grad(model, cpu["params"], batch)
     _, g_gpu = value_and_grad(model, gpu["params"], gbatch)
     grad_errs = _leaf_errs(np, g_gpu, g_cpu)
-    # control: attention's output detached, the parent's route
-    orig = transformer.flash_attention_op
-    transformer.flash_attention_op = lambda q, k, v, **kw: flash_attention_op(
-        q.detach(), k.detach(), v.detach(), **kw)
-    try:
+    cpu_own = None
+    if cpu_route is not contextlib.nullcontext:
+        _, g_own = value_and_grad(model, cpu["params"], batch)
+        cpu_own = max(_leaf_errs(np, g_own, g_cpu).items(), key=lambda t: t[1])
+        del g_own
+    with control():
         _, g_bad = value_and_grad(model, gpu["params"], gbatch)
-    finally:
-        transformer.flash_attention_op = orig
     bad = {p: e for p, e in _leaf_errs(np, g_bad, g_cpu).items()
-           if p.split("/")[-1] in ("wq", "wk", "wv")}
+           if p.split("/")[-1] in control_leaves}
     step = make_train_step(model, opt)
-    cpu, m_cpu = step(cpu, batch)
+    with cpu_route():
+        cpu, m_cpu = step(cpu, batch)
     gpu, m_gpu = step(gpu, gbatch)
     torch.cuda.synchronize()
     loss_rel = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     gn_rel = abs(float(m_gpu["grad_norm"]) - float(m_cpu["grad_norm"])) / float(m_cpu["grad_norm"])
     param_errs = _leaf_errs(np, gpu["params"], cpu["params"])
-    out = {"phase": "train", "check": "float32 train step, stablelm-3b 2 layers, b 2 x S 256, "
-           "card vs CPU", "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
+    out = {"phase": "train", "check": f"float32 train step, {cfg.name} {cfg.num_layers} layers, "
+           f"b {batch['tokens'].shape[0]} x S {seq}, card vs CPU",
+           "loss_cpu": float(m_cpu["loss"]), "loss_rel_err": loss_rel,
            "grad_norm_rel_err": gn_rel, "worst_grad_leaf": max(grad_errs.items(),
                                                                key=lambda t: t[1]),
            "worst_param_leaf": max(param_errs.items(), key=lambda t: t[1]),
-           "detached_control_wqkv_rel_err": min(bad.values()), "seconds":
-           time.perf_counter() - t0}
+           "control": control_name, "control_worst_leaf": max(bad.items(), key=lambda t: t[1]),
+           "control_best_leaf": min(bad.items(), key=lambda t: t[1]),
+           "cpu_float32_route_worst_leaf": cpu_own,
+           "seconds": time.perf_counter() - t0}
     emit(out)
     if loss_rel > 1e-5:
-        fail(f"train step: loss {loss_rel} from the CPU's")
+        fail(f"train step {cfg.name}: loss {loss_rel} from the CPU's")
     if max(grad_errs.values()) > 1e-4:
-        fail(f"train step: gradient leaf {out['worst_grad_leaf']} outside 1e-4")
+        fail(f"train step {cfg.name}: gradient leaf {out['worst_grad_leaf']} outside 1e-4")
     if gn_rel > 1e-5 or max(param_errs.values()) > 1e-5:
-        fail(f"train step: grad norm {gn_rel} or params {out['worst_param_leaf']} outside 1e-5")
+        fail(f"train step {cfg.name}: grad norm {gn_rel} or params {out['worst_param_leaf']} "
+             "outside 1e-5")
     if min(bad.values()) <= 1e-4:
-        fail(f"train step: the detached-attention control passed ({bad})")
+        fail(f"train step {cfg.name}: the control '{control_name}' passed ({bad})")
     del cpu, gpu, g_cpu, g_gpu, g_bad
     _free(torch)
+    return out
 
 
-def _train_run(ctx, torch, rt, name, cfg, batch, seq, steps=10):
-    """``steps`` steps through ``Trainer`` on the card, checkpoints every 5
-    submitted to its async writer (the caller drains it: the writes overlap
-    what runs next); returns (trainer, losses, step times s, peak GiB,
+def _profile_step(torch, tr, name, step_ms, bwd_launches):
+    """One more step of a trainer under ``torch.profiler``: the device time
+    of its kernels (one stream, so their sum is the busy time), the idle
+    share of the median unprofiled step ``step_ms``, the kernels that hold
+    most of the time, and each SSD kernel's launches and time; each of the
+    ``ssd_scan`` backward's four CUDA kernels must run ``bwd_launches``
+    times (once per mamba layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.train(1)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ssd = {}
+    for k, (n, us) in by_name.items():
+        short = re.search(r"ssd_\w+", k)
+        if short:
+            n0, us0 = ssd.get(short.group(0), (0, 0.0))
+            ssd[short.group(0)] = (n0 + n, us0 + us)
+    emit({"phase": "train", "model": name, "profiled_step": {
+        "device_busy_ms": busy_ms, "step_ms": step_ms,
+        "idle_share": 1 - busy_ms / step_ms if by_name else "not measured",
+        "top_kernels": [{"name": k[:90], "launches": n, "ms": us / 1e3}
+                        for k, (n, us) in top],
+        "ssd_kernels": {k: {"launches": n, "ms": us / 1e3} for k, (n, us) in sorted(ssd.items())}}})
+    bwd = {k: n for k, (n, _) in ssd.items() if k.startswith("ssd_bwd_")}
+    if by_name and (len(bwd) != 4 or set(bwd.values()) != {bwd_launches}):
+        fail(f"train {name}: the profiled step ran the ssd_scan backward's kernels {bwd}, "
+             f"want 4 kernels {bwd_launches} times each")
+
+
+def _train_run(ctx, torch, rt, name, cfg, batch, seq, steps=10, *, opt=None,
+               checkpoint_every=5, falling=True, profile_bwd_launches=None):
+    """``steps`` steps through ``Trainer`` on the card (AdamW unless ``opt``),
+    checkpoints every ``checkpoint_every`` submitted to its async writer
+    (the caller drains it: the writes overlap what runs next); the losses
+    must be finite and, where ``falling``, end below where they began;
+    ``profile_bwd_launches``: one more step after them under the profiler
+    (``_profile_step``, which expects that many launches of each of the
+    ``ssd_scan`` backward's kernels); returns (trainer, losses, step times s, peak GiB,
     counts, train s)."""
     import numpy as np
     from repro_torch.data.pipeline import ShardedLoader
@@ -2307,11 +2463,14 @@ def _train_run(ctx, torch, rt, name, cfg, batch, seq, steps=10):
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     model = build_model(cfg)
-    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    opt = opt or OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    shards = 2 if batch % 2 == 0 else 1
     loader = ShardedLoader(seed=0, vocab=cfg.vocab_size, seq_len=seq,
-                           batch_per_shard=batch // 2, num_shards=2, owned=[0, 1])
-    tr = Trainer(model, opt, loader, TrainerConfig(workdir=os.path.join(rt, name),
-                                                   checkpoint_every=5), device="cuda")
+                           batch_per_shard=batch // shards, num_shards=shards,
+                           owned=list(range(shards)))
+    tr = Trainer(model, opt, loader,
+                 TrainerConfig(workdir=os.path.join(rt, name), checkpoint_every=checkpoint_every),
+                 device="cuda")
     tr.init_state(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2324,8 +2483,10 @@ def _train_run(ctx, torch, rt, name, cfg, batch, seq, steps=10):
     losses = [m["loss"] for m in tr.metrics_log]
     times = [m["step_time"] for m in tr.metrics_log]
     peak = _peak_gb(torch)
-    if not all(np.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"train {name}: losses {losses} not finite and falling")
+    if not all(np.isfinite(x) for x in losses) or (falling and not losses[-1] < losses[0]):
+        fail(f"train {name}: losses {losses} not finite{' and falling' if falling else ''}")
+    if profile_bwd_launches is not None:
+        _profile_step(torch, tr, name, statistics.median(times[1:]) * 1e3, profile_bwd_launches)
     tr.state = None  # the writer holds its host copies
     _free(torch)
     return tr, losses, times, peak, counts, t_train
@@ -2407,19 +2568,159 @@ def bwd_cases(ctx, torch):
     _free(torch)
 
 
+def ssd_bwd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, control=False):
+    """The SSD backward kernel against its plain version and against float64
+    autograd through the plain forward, from one seeded set of inputs (x, B
+    and C as views of one xBC, dy, a final state's gradient); two calls
+    bit-equal; ``control``: the kernel on each chunk alone (the inter-chunk
+    state gradient dropped) must miss the same tolerance.  Times: the kernel
+    (CUDA graph, and eager), the plain backward.  Tolerances of each
+    gradient's largest entry: float32 5e-5 (dA 1e-4: one signed sum per head
+    over the batch's rows), bf16 2e-2."""
+    from repro_torch.kernels.ssd import ssd_bwd_ref, ssd_ref, ssd_scan_bwd
+    from repro_torch.kernels.ssd.kernel import bwd_launch_plan, ssd_scan_for_grad
+
+    dev = torch.device("cuda")
+    d_in = nh * hd
+    xbc = torch.randn((b, l, d_in + 2 * ds), generator=gen, device=dev).to(dtype)
+    x = xbc[..., :d_in].reshape(b, l, nh, hd)
+    B, C = xbc[..., d_in:d_in + ds], xbc[..., d_in + ds:]
+    dt = torch.rand((b, l, nh), generator=gen, device=dev) * 0.49 + 0.01
+    A = -(torch.rand((nh,), generator=gen, device=dev) * 1.5 + 0.5)
+    D = torch.randn((nh,), generator=gen, device=dev)
+    dy = torch.randn((b, l, nh, hd), generator=gen, device=dev).to(dtype)
+    dS = torch.randn((b, nh, hd, ds), generator=gen, device=dev)
+    args = (x, dt, A, B, C, D)
+    _, _, cs, s_in = ssd_scan_for_grad(*args, chunk=chunk)
+
+    def call():
+        return ssd_scan_bwd(*args, dy, dS, cs, s_in, chunk=chunk)
+
+    got, again = call(), call()
+    plain = ssd_bwd_ref(*args, dy, dS, chunk=chunk)
+    leaves = [t.detach().double().requires_grad_(True) for t in args]
+    y64, st64 = ssd_ref(*leaves, chunk=chunk)
+    oracle = torch.autograd.grad((y64 * dy.double()).sum() + (st64 * dS.double()).sum(), leaves)
+    del leaves, y64, st64
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        fail(f"ssd_scan_bwd {label}: two calls differ")
+    dname = str(dtype).replace("torch.", "")
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+
+    def tol(n):
+        return 2e-2 if dname == "bfloat16" else (1e-4 if n == "dA" else 5e-5)
+
+    def errs(xs, refs):
+        """per gradient: max|x - ref| / max|ref|"""
+        return {n: float((x.double() - r.double()).abs().max() / r.double().abs().max())
+                for n, x, r in zip(names, xs, refs)}
+
+    e_plain, e_oracle = errs(got, plain), errs(got, oracle)
+    if any(max(e_plain[n], e_oracle[n]) > tol(n) for n in names):
+        fail(f"ssd_scan_bwd {label} ({dname}): relative errors {e_plain} (plain) and "
+             f"{e_oracle} (float64 autograd) outside their tolerances")
+    ctl = None
+    if control:
+        ctl = errs(_ssd_bwd_chunkwise(*args, dy, dS, cs, s_in, chunk=chunk), oracle)
+        if not all(ctl[n] > tol(n) for n in ("dx", "ddt", "dB")):
+            fail(f"ssd_scan_bwd {label}: the control 'inter-chunk dS dropped' passed ({ctl})")
+    # the bound: the causal half of C.B^T once per (batch, chunk); per
+    # (batch, chunk, head) the causal half of dy.x^T, M^T dy, N^T C and N B
+    # and four (c x hd x ds) state products; each input read once (x, dy, B,
+    # C, dt, A, D, the state's gradient), each gradient written once
+    c = min(chunk, l)
+    pairs = c * (c + 1) / 2
+    ops = (float(b * (l // c)) * 2 * pairs * ds
+           + float(b * (l // c) * nh) * (2 * pairs * (2 * hd + 2 * ds) + 8 * c * hd * ds))
+    e = x.element_size()
+    nbytes = (3 * b * l * d_in * e + 4 * b * l * ds * e + 2 * 4 * b * l * nh + 4 * 4 * nh
+              + 4 * b * nh * hd * ds)
+    peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    plan = bwd_launch_plan(dtype, hd, ds, c, batch=b, heads=nh, seq=l)
+    case = {"kernel": "ssd_scan_bwd", "case": label, "dtype": dname, "b": b, "l": l,
+            "nh": nh, "hd": hd, "ds": ds, "chunk": chunk,
+            "max_abs_err": max(float((x.double() - r).abs().max()) for x, r in zip(got, oracle)),
+            "rel_err_plain": e_plain, "rel_err_float64_autograd": e_oracle,
+            "tol": {n: tol(n) for n in names}, "control_inter_chunk_dS_dropped": ctl,
+            "deterministic": True, "ops": ops, "bytes": nbytes,
+            "ops_peak": "3xTF32, 495/3 TFLOP/s" if dname == "float32" else "bf16, 989 TFLOP/s",
+            "kernel_ms": device_ms(torch, [call], reps=10, per_graph=2),
+            "eager_ms": eager_ms(torch, call, reps=10, warmup=2),
+            "plain_ms": device_ms(torch, [lambda: ssd_bwd_ref(*args, dy, dS, chunk=chunk)],
+                                  reps=5, per_graph=1),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "library": "none (no single call)",
+            "plan": {"grid_chunk": plan.grid_chunk, "grid_pass": plan.grid_pass,
+                     "smem_chunk": plan.smem_chunk, "scratch_bytes": plan.scratch_bytes,
+                     "cuda_kernels_per_call": plan.kernels}}
+    ctx.cases.append(case)
+    emit(case)
+
+
+def ssd_bwd_cases(ctx, torch):
+    """The SSD backward at mamba2-780m's train shapes (bf16 and f32), at its
+    float32 step's shape with the control, at jamba's width (bf16 and f32)
+    and over 32 chunks."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    bf16, f32 = torch.bfloat16, torch.float32
+    m2 = (48, 64, 128, 256)
+    for dt in (bf16, f32):
+        ssd_bwd_case(ctx, torch, gen, "mamba2-780m train b=4 l=1024", 4, 1024, *m2, dt)
+    ssd_bwd_case(ctx, torch, gen, "mamba2-780m f32 step b=2 l=512", 2, 512, *m2, f32,
+                 control=True)
+    for dt in (bf16, f32):
+        ssd_bwd_case(ctx, torch, gen, "jamba-v0.1-52b train l=1024", 1, 1024, 128, 64, 16, 256,
+                     dt)
+    ssd_bwd_case(ctx, torch, gen, "mamba2-780m l=8192 (32 chunks)", 1, 8192, *m2, bf16)
+    _free(torch)
+
+
+def _ssd_train_row(ctx, name, cfg, cut, batch, seq, optimizer, losses, times, peak, counts,
+                   t_train, at):
+    """The train row of an SSM model, its launches a step checked: one
+    ``ssd_scan`` backward per mamba layer, a forward per mamba layer (two
+    under remat), and for an attention layer one flash forward and backward."""
+    from repro_torch.models.blocks import build_plan
+
+    steps = len(losses)
+    plan = build_plan(cfg)
+    n_attn = sum(k.mixer == "attn" for k in plan.kinds) * plan.n_repeat
+    n_mamba = cfg.num_layers - n_attn
+    per_step = {k: counts[k] / steps for k in
+                ("ssd_scan", "ssd_scan_bwd", "flash_attention", "flash_attention_bwd")}
+    if per_step["ssd_scan_bwd"] != n_mamba or per_step["ssd_scan"] not in (n_mamba, 2 * n_mamba):
+        fail(f"train {name}: ssd_scan launches a step {per_step}, want {n_mamba} backward")
+    if (per_step["flash_attention_bwd"] != n_attn
+            or per_step["flash_attention"] not in (n_attn, 2 * n_attn)):
+        fail(f"train {name}: flash launches a step {per_step}, want {n_attn} backward")
+    step_ms = statistics.median(times[1:]) * 1e3
+    main = next(c for c in ctx.cases if c["case"] == at and c["dtype"] == "bfloat16")
+    row = {"phase": "train", "model": name, "cut": cut, "dtype": "bfloat16",
+           "optimizer": optimizer, "batch": [batch, seq], "losses": losses,
+           "ms_per_step": step_ms, "first_step_ms": times[0] * 1e3,
+           "tokens_per_s": batch * seq / (step_ms / 1e3), "peak_gib": peak,
+           "launches_per_step": per_step,
+           "ssd_bwd_share_of_step": per_step["ssd_scan_bwd"] * main["kernel_ms"] / step_ms,
+           "train_s": t_train, "launches": counts}
+    emit(row)
+    return row
+
+
 def phase_train(ctx, torch, rt):
     """Training: the flash backward kernel against its plain version at
     the train shapes, a float32 train step against the CPU, bf16 training
-    at full width through the Trainer, the CLI's crash and resume, and the
-    SSM's refusal."""
-    import numpy as np
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.launch.steps import make_train_state, make_train_step
-    from repro_torch.models import build_model
-    from repro_torch.optim import OptimizerConfig
+    at full width through the Trainer, the CLI's crash and resume; then the
+    SSD backward against its plain version, a float32 mamba2-780m step
+    against the CPU, mamba2-780m whole and a jamba-v0.1-52b period in bf16."""
+    from repro_torch.configs import get_config
 
     bwd_cases(ctx, torch)
-    _train_parity(ctx, torch)
+    _train_parity(ctx, torch, dataclasses.replace(get_config("stablelm-3b"), num_layers=2,
+                                                  dtype="float32"), 2, 256,
+                  _attention_detached, "attention detached", ("wq", "wk", "wv"))
 
     # bf16 at full width through the Trainer: 2 + 2 flash launches a step
     full = get_config("stablelm-3b")
@@ -2456,21 +2757,47 @@ def phase_train(ctx, torch, rt):
           "writes ran beside faas-bench and the CLI)",
           "stablelm_drain_s": _drain(tr_lm, "stablelm"), "faas_drain_s": _drain(tr_fb, "faas")})
 
-    # the SSM family has no CUDA backward: its train step raises
-    m = build_model(reduced(get_config("mamba2-780m")))
-    opt = OptimizerConfig()
-    state = make_train_state(m, opt, 0, device="cuda")
-    tok = torch.from_numpy(np.random.default_rng(3).integers(
-        0, m.cfg.vocab_size, (1, 64), dtype=np.int32)).cuda()
-    try:
-        make_train_step(m, opt)(state, {"tokens": tok, "labels": tok})
-    except NotImplementedError as e:
-        emit({"phase": "train", "check": "mamba2 reduced train step on the card raises",
-              "error": str(e)})
-    else:
-        fail("train: a mamba2 train step on the card did not raise")
-    del state
-    _free(torch)
+    _ssm_training(ctx, torch, rt)
+
+
+def _ssm_training(ctx, torch, rt):
+    """The SSM families on the card: the ssd_scan backward at the train
+    shapes, a float32 mamba2-780m step against the CPU (2 layers, b 2 x S
+    512: two chunks), mamba2-780m whole (bf16, b 4 x S 1024, 10 steps) and a
+    jamba-v0.1-52b period (bf16, b 1 x S 1024, 3 steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import OptimizerConfig
+
+    ssd_bwd_cases(ctx, torch)
+    m_full = get_config("mamba2-780m")
+    _train_parity(ctx, torch, dataclasses.replace(m_full, num_layers=2, dtype="float32"), 2,
+                  512, _ssd_carry_dropped, "inter-chunk dS dropped",
+                  ("w_xBC", "w_dt", "A_log", "conv_w"), cpu_route=_ssd_float64_on_cpu)
+    # mamba2-780m whole, bf16, AdamW f32 m / v, no checkpoints (an 11 GB
+    # state would cost about a minute of host time; stablelm-3b's run
+    # drives the async writer)
+    tr, losses, times, peak, counts, t_train = _train_run(ctx, torch, rt, "mamba2", m_full, 4,
+                                                          1024, checkpoint_every=12,
+                                                          profile_bwd_launches=48)
+    tr.close()
+    ctx.paths["mamba2-780m train (bf16)"] = counts
+    _ssd_train_row(ctx, "mamba2-780m", m_full, "none (48 layers)", 4, 1024, "adamw (f32 m, v)",
+                   losses, times, peak, counts, t_train, "mamba2-780m train b=4 l=1024")
+    # one jamba-v0.1-52b period: 1 attention and 7 mamba layers, 4 MoE
+    # layers of 16 experts; Adafactor accumulating in bf16, so that it fits
+    j_full = get_config("jamba-v0.1-52b")
+    j_cfg = dataclasses.replace(j_full, num_layers=j_full.attn_layer_period)
+    opt = OptimizerConfig(name="adafactor", accum_dtype="bfloat16", lr=1e-3, warmup_steps=1,
+                          total_steps=3)
+    tr, losses, times, peak, counts, t_train = _train_run(ctx, torch, rt, "jamba", j_cfg, 1,
+                                                          1024, 3, opt=opt, checkpoint_every=5,
+                                                          falling=False, profile_bwd_launches=7)
+    tr.close()
+    ctx.paths["jamba-v0.1-52b train (bf16)"] = counts
+    _ssd_train_row(ctx, "jamba-v0.1-52b", j_cfg,
+                   f"num_layers {j_full.num_layers} -> {j_cfg.num_layers} (one period)", 1, 1024,
+                   "adafactor (bf16 accumulation)", losses, times, peak, counts, t_train,
+                   "jamba-v0.1-52b train l=1024")
 
 
 # ------------------------------------------------------------------- summary
@@ -2490,6 +2817,9 @@ KERNELS = {  # source, the TPU kernel it replaces, the path its launches are rea
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd/kernel.py:80", "jamba-v0.1-52b prefill",
                  "jamba-v0.1-52b width l=1024"),
+    "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                     "src/repro/models/ssm.py:25 (no Pallas kernel: JAX differentiates "
+                     "ssd_chunked)", "mamba2-780m train (bf16)", "mamba2-780m train b=4 l=1024"),
     "decode_attention_int8": ("src/repro_torch/csrc/decode_attention_int8.cu",
                               "src/repro/kernels/decode_attention/kernel.py:77",
                               "stablelm-3b prefill + decode", "stablelm-3b S=2048 pos=1039"),

@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 SOURCES = ("snapshot_patch", "flash_attention", "flash_attention_bwd", "ssd_scan",
-           "decode_attention_int8")
+           "ssd_scan_bwd", "decode_attention_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

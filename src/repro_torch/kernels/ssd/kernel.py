@@ -13,6 +13,13 @@ scan), float32 a fourth before them (C.B^T once per chunk); ``launches``
 counts calls.  ``launch_plan`` is the launch plan in plain Python (padded
 widths, row tiles, grids, shared memory), so that the CPU tests reach it;
 the launcher refuses a plan that differs from its instantiations.
+
+The backward (``csrc/ssd_scan_bwd.cu``, ``ssd_scan_bwd``) takes the
+forward's prefix sums and entering states (``ssd_scan_for_grad``) and
+enqueues four kernels a call (each chunk's own state gradient, the reverse
+state pass, the chunk gradients, the ordered sums over heads, batch and
+chunks); ``bwd_launches`` counts its calls and ``bwd_launch_plan`` is its
+plan.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from .ref import check_length
 
 #: launches of the op, counted where it launches its kernels
 launches = LaunchCounter()
+#: launches of the backward
+bwd_launches = LaunchCounter()
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64
@@ -45,6 +54,7 @@ STATE_PADS = (64, 128)       # instantiated widths of ds
 KERNELS_PER_CALL = {torch.bfloat16: 3, torch.float32: 4}
 _ERRORS = {10003: "the launch plan matches no instantiation of the kernel"}
 _fn_cache = []
+_bwd_fn_cache = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,17 +206,20 @@ def ssd_scan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernels on CUDA tensors; returns (y (b, l, nh, hd) in
     x's dtype, final state (b, nh, hd, ds) float32)."""
-    y, state, _ = ssd_scan_with_prefix_sums(x, dt, A, B, C, D, chunk=chunk)
+    y, state, _, _ = ssd_scan_for_grad(x, dt, A, B, C, D, chunk=chunk)
     return y, state
 
 
-def ssd_scan_with_prefix_sums(
+def ssd_scan_for_grad(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
     D: torch.Tensor, *, chunk: int = 256,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``ssd_scan``, and the chunk prefix sums cs (b, chunks, nh, chunk) float32
-    that its chunk-state kernel computed, to hold their order to the plain
-    version's ``prefix_sum`` bit for bit."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ssd_scan``, and what the backward takes from it: the chunk prefix
+    sums cs (b, chunks, nh, chunk) float32 that its chunk-state kernel
+    computed (in the plain version's ``prefix_sum`` order, bit for bit), and
+    the states entering each chunk as the chunk scan read them, a (b,
+    chunks, nh, hd, ds) float32 buffer holding float32 states or, for
+    bfloat16 inputs, their hi and lo bf16 planes (b, chunks, nh, 2, hd, ds)."""
     dev = require_cuda("ssd_scan", x, dt, A, B, C, D)
     _check(x, dt, A, B, C, D)
     b, l, nh, hd = x.shape
@@ -221,9 +234,12 @@ def ssd_scan_with_prefix_sums(
     y = torch.empty((b, l, nh, hd), dtype=x.dtype, device=dev)
     state = torch.empty((b, nh, hd, ds), dtype=torch.float32, device=dev)
     # scratch: cs and v per chunk row; the chunk states and the states
-    # entering each chunk (float32, or bf16 hi and lo planes)
-    cs, v = torch.empty((2, b, nc, nh, chunk), dtype=torch.float32, device=dev)
-    states, s_in = torch.empty((2, b, nc, nh, hd, ds), dtype=torch.float32, device=dev)
+    # entering each chunk (float32, or bf16 hi and lo planes).  Each its own
+    # allocation: the backward keeps cs and s_in alive, not the rest
+    cs = torch.empty((b, nc, nh, chunk), dtype=torch.float32, device=dev)
+    v = torch.empty_like(cs)
+    states = torch.empty((b, nc, nh, hd, ds), dtype=torch.float32, device=dev)
+    s_in = torch.empty_like(states)
     # float32: C.B^T per (batch x chunk, tile pair), 64 x 64
     cbt = (torch.empty((b * nc, plan.grid_cb[1], TILE * TILE), dtype=torch.float32,
                        device=dev) if plan.smem_cb else None)
@@ -241,4 +257,156 @@ def ssd_scan_with_prefix_sums(
         raise RuntimeError(f"ssd_scan: {_ERRORS[rc]} (error {rc})")
     check_launch("ssd_scan", rc)
     launches.add()
-    return y, state, cs
+    return y, state, cs, s_in
+
+
+# ------------------------------------------------------------------ backward
+
+BWD_THREADS = 256
+BWD_MAX_CHUNK = 1024
+BWD_STATE_PADS = (16, 32, 64, 128)   # instantiated widths of ds
+BWD_KERNELS_PER_CALL = 4
+BWD_RED = BWD_THREADS + 16           # the block-sum scratch (kRed)
+
+
+@dataclasses.dataclass(frozen=True)
+class SsdBwdPlan:
+    """How the backward's kernels run one call."""
+
+    head_dim: int
+    state: int
+    chunk: int
+    state_pad: int           # ds zero-padded (the instantiated width)
+    row_tiles: int           # 64-row tiles of a chunk
+    chunks: int
+    smem_chunk: int          # dynamic shared memory of a chunk-gradient CTA
+    smem_local: int          # ... of a local-state CTA
+    grid_local: Tuple[int, int]          # (batch x chunks, heads)
+    grid_pass: Tuple[int, int, int]      # (hd ds / 256, heads, batch)
+    grid_chunk: Tuple[int, int]          # (batch x chunks, heads)
+    grid_reduce: Tuple[int]              # (batch x seq x ds / 256,)
+    scratch_bytes: int       # local and dS_out states, per-head dB / dC partials, dA / dD partials
+    kernels: int = BWD_KERNELS_PER_CALL
+    threads: int = BWD_THREADS
+
+    @property
+    def ctas(self) -> int:
+        """CTAs of the largest kernel, the chunk gradients."""
+        x, y = self.grid_chunk
+        return x * y
+
+
+def bwd_smem(state_pad: int, chunk: int) -> Tuple[int, int]:
+    """Shared memory of a chunk-gradient and a local-state CTA: float32
+    tiles of 64 rows with odd row strides (hd padded to 64, plus one; ds
+    padded, plus one); the chunk kernel's x, dy and three product tiles, B
+    and C, seven per-row arrays of the chunk and the block-sum scratch."""
+    hs, ss = TILE + 1, state_pad + 1
+    chunk_floats = 5 * TILE * hs + 2 * TILE * ss + 7 * chunk + BWD_RED
+    local_floats = TILE * hs + TILE * ss + TILE
+    return 4 * chunk_floats, 4 * local_floats
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_launch_plan(dtype: torch.dtype, head_dim: int, state: int, chunk: int, *,
+                    batch: int = 1, heads: int = 1, seq: Optional[int] = None) -> SsdBwdPlan:
+    """The backward's launch plan; raises ``ValueError`` naming what the
+    design cannot take (the forward's widths, chunks up to
+    ``BWD_MAX_CHUNK``)."""
+    if not 0 < chunk <= BWD_MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside 1..{BWD_MAX_CHUNK} for the backward: its "
+                         "per-row arrays of the chunk sit in shared memory")
+    fwd = launch_plan(dtype, head_dim, state, chunk, batch=batch, heads=heads, seq=seq)
+    seq = fwd.chunks * chunk
+    state_pad = next(w for w in BWD_STATE_PADS if w >= state)
+    smem_chunk, smem_local = bwd_smem(state_pad, chunk)
+    if max(smem_chunk, smem_local) > SMEM_PER_BLOCK:  # not reached by the sizes above
+        raise ValueError(f"no tiling fits {SMEM_PER_BLOCK} bytes of shared memory")
+    chunks = fwd.chunks
+    state_elems = batch * chunks * heads * head_dim * state
+    scratch = 4 * (2 * state_elems + 2 * batch * seq * heads * state + 2 * batch * chunks * heads)
+    return SsdBwdPlan(head_dim=head_dim, state=state, chunk=chunk, state_pad=state_pad,
+                      row_tiles=fwd.row_tiles, chunks=chunks, smem_chunk=smem_chunk,
+                      smem_local=smem_local, grid_local=(batch * chunks, heads),
+                      grid_pass=(-(-head_dim * state // BWD_THREADS), heads, batch),
+                      grid_chunk=(batch * chunks, heads),
+                      grid_reduce=(-(-batch * seq * state // BWD_THREADS),),
+                      scratch_bytes=scratch)
+
+
+def _bwd_fn():
+    if not _bwd_fn_cache:
+        fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i] + [p] * 22 + [i] * 6 + [p, i, i, i, p]
+        fn.restype = ctypes.c_int
+        _bwd_fn_cache.append(fn)
+    return _bwd_fn_cache[0]
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+    D: torch.Tensor, dy: torch.Tensor, dstate: Optional[torch.Tensor], cs: torch.Tensor,
+    s_in: torch.Tensor, *, chunk: int = 256,
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward on CUDA tensors: (dx, ddt, dA, dB, dC, dD) of
+    ``ssd_scan`` at (x, dt, A, B, C, D) given dy (b, l, nh, hd) contiguous in
+    x's dtype and the final state's gradient ``dstate`` (b, nh, hd, ds)
+    float32 or None (zero), with ``cs`` and ``s_in`` from
+    ``ssd_scan_for_grad``.  dx, dB and dC come back in x's dtype as views of
+    one (b, l, nh hd + 2 ds) buffer, laid out as the mixer's xBC; ddt, dA and
+    dD in float32."""
+    extra = () if dstate is None else (dstate,)
+    dev = require_cuda("ssd_scan_bwd", x, dt, A, B, C, D, dy, cs, s_in, *extra)
+    _check(x, dt, A, B, C, D)
+    b, l, nh, hd = x.shape
+    ds = B.shape[2]
+    chunk = check_length(l, chunk)
+    plan = bwd_launch_plan(x.dtype, hd, ds, chunk, batch=b, heads=nh, seq=l)
+    nc = plan.chunks
+    if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    if dstate is not None and (tuple(dstate.shape) != (b, nh, hd, ds)
+                               or dstate.dtype != torch.float32 or not dstate.is_contiguous()):
+        raise ValueError(f"dstate must be contiguous float32 {(b, nh, hd, ds)}")
+    for name, t, shape in (("cs", cs, (b, nc, nh, chunk)), ("s_in", s_in, (b, nc, nh, hd, ds))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be the forward's contiguous float32 {shape}")
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+        if why:
+            raise ValueError(f"ssd_scan_bwd: {why}")
+    d_in = nh * hd
+    grads = torch.empty((b, l, d_in + 2 * ds), dtype=x.dtype, device=dev)
+    dx = grads[..., :d_in].view(b, l, nh, hd)
+    dB, dC = grads[..., d_in:d_in + ds], grads[..., d_in + ds:]
+    ddt = torch.empty((b, l, nh), dtype=torch.float32, device=dev)
+    dA = torch.empty((nh,), dtype=torch.float32, device=dev)
+    dD = torch.empty_like(dA)
+    # scratch: each chunk's own state gradient and the gradient of the state
+    # leaving it; per-head partials of dB and dC; per-chunk partials of dA, dD
+    local = torch.empty((b, nc, nh, hd, ds), dtype=torch.float32, device=dev)
+    dsout = torch.empty_like(local)
+    pB = torch.empty((b, nc, nh, chunk, ds), dtype=torch.float32, device=dev)
+    pC = torch.empty_like(pB)
+    pA = torch.empty((b, nc, nh), dtype=torch.float32, device=dev)
+    pD = torch.empty_like(pA)
+    strides = (ctypes.c_int64 * 17)(
+        *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2], *dx.stride()[:3],
+        *dB.stride()[:2], *dC.stride()[:2])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bwd_fn()(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                       B.data_ptr(), C.data_ptr(), D.data_ptr(), dy.data_ptr(),
+                       dstate.data_ptr() if dstate is not None else None, cs.data_ptr(),
+                       s_in.data_ptr(), local.data_ptr(), dsout.data_ptr(), dx.data_ptr(),
+                       ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                       dD.data_ptr(), pB.data_ptr(), pC.data_ptr(), pA.data_ptr(),
+                       pD.data_ptr(), b, l, nh, hd, ds, chunk, strides, plan.state_pad,
+                       plan.smem_chunk, plan.smem_local, stream)
+    if rc in _ERRORS:
+        raise RuntimeError(f"ssd_scan_bwd: {_ERRORS[rc]} (error {rc})")
+    check_launch("ssd_scan_bwd", rc)
+    bwd_launches.add()
+    return dx, ddt, dA, dB, dC, dD

@@ -4,8 +4,8 @@ in ``repro.launch.steps``.
 
 The train step is ``torch.autograd`` through ``Model.loss``: on the card,
 attention's gradient comes from the hand-written flash backward
-(``kernels/flash_attention``), and a path with no CUDA backward (the SSD
-scan) raises rather than train on a detached output."""
+(``kernels/flash_attention``) and the SSD scan's from the hand-written
+``ssd_scan`` backward (``kernels/ssd``)."""
 
 from __future__ import annotations
 

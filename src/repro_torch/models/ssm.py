@@ -2,8 +2,9 @@
 
 ``mamba_mixer`` is in_proj → causal conv → SSD scan → gated norm →
 out_proj.  Over a full sequence the scan goes through ``ssd_op``: the
-hand-written CUDA kernel for CUDA tensors, its plain version (``ssd_chunked``
-as a loop over chunks) for CPU tensors; its final state is the SSM cache.
+hand-written CUDA kernel for CUDA tensors (and under grad its hand-written
+backward), its plain version (``ssd_chunked`` as a loop over chunks) for
+CPU tensors; its final state is the SSM cache.
 One decode token goes through ``conv_step`` and ``ssd_decode_step``, the
 float32 recurrence, in plain PyTorch as the JAX package leaves it to XLA.
 The projections stay ``torch.einsum``.

@@ -7,10 +7,15 @@ dtype, weight decay falls on leaves of two or more dims only, and a leaf of
 three or more dims whose float32 temporaries exceed
 ``update_chunk_bytes`` is updated slice by slice along axis 0 (JAX's
 ``lax.map``), which bounds the temporaries and, for Adafactor, makes the
-update clipping's RMS one per slice, as JAX's does.
+update clipping's RMS one per slice, as JAX's does.  Where axis 0 has
+length 1 (one stacked layer, which ``lax.map`` leaves whole and XLA fuses),
+Adafactor walks the leaf's matrices in two passes instead, with the whole
+leaf's RMS: a single-period jamba's 16 experts would otherwise need about
+five float32 copies of a 3.5 GiB leaf at once.
 
-Unlike JAX's immutable arrays, the update writes the new parameters and
-moments into the given tensors in place (a 3B model's float32 moments are
+Unlike JAX's immutable arrays, the clip scales the given gradients and the
+update writes the new parameters and moments into the given tensors in
+place (a 3B model's float32 moments are
 not copied each step); the returned state holds the same tensors and a new
 step counter.  The state stays on the parameters' device and nothing waits
 on the device.
@@ -95,12 +100,15 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 def clip_by_global_norm(grads: PyTree, max_norm: float, *,
                         prescale: float = 1.0) -> Tuple[PyTree, torch.Tensor]:
-    """Clip to ``max_norm``.  ``prescale`` folds a pending constant factor
-    (1 / microbatches from gradient accumulation) into the one multiply."""
+    """Clip to ``max_norm``, scaling the given tensors in place (a copy of a
+    model's gradients would double their memory) and returning them.
+    ``prescale`` folds a pending constant factor (1 / microbatches from
+    gradient accumulation) into the one multiply."""
     gnorm = global_norm(grads) * prescale
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0) * prescale
     # the scale in each grad's own dtype: no f32 copy of a bf16 leaf
-    return tree_map(lambda g: g * scale.to(g.dtype), grads), gnorm
+    tree_map(lambda g: g.mul_(scale.to(g.dtype)), grads)
+    return grads, gnorm
 
 
 # ------------------------------------------------------------------- AdamW
@@ -174,8 +182,38 @@ def adafactor_update(cfg: OptimizerConfig, grads: PyTree, state: PyTree, params:
         for k, t in new.items():
             v[k].copy_(t)
 
+    def upd_streamed(p, g, v):
+        """``upd_inner`` for a leaf of one stacked layer: its matrices one
+        at a time, the sum of squared deltas first, then the update with
+        the whole leaf's RMS (the factored statistics are per matrix)."""
+        R, C = p.shape[-2:]
+        ps, gs = p.view(-1, R, C), g.reshape(-1, R, C)
+        vrs, vcs = v["vr"].view(-1, R), v["vc"].view(-1, C)
+
+        def delta_of(i):
+            gi = gs[i].to(torch.float32)
+            g2 = torch.square(gi) + 1e-30
+            vr = decay * vrs[i] + (1 - decay) * torch.mean(g2, dim=-1)
+            vc = decay * vcs[i] + (1 - decay) * torch.mean(g2, dim=-2)
+            r = vr / torch.mean(vr, dim=-1, keepdim=True)
+            return gi / (torch.sqrt(r[:, None] * vc[None, :]) + cfg.eps), vr, vc
+
+        sq = torch.zeros((), dtype=torch.float32, device=p.device)
+        for i in range(ps.shape[0]):
+            sq = sq + torch.sum(torch.square(delta_of(i)[0]))
+        rms = torch.sqrt(sq / p.numel() + 1e-30)
+        for i in range(ps.shape[0]):
+            delta, vr, vc = delta_of(i)
+            delta = delta / torch.clamp(rms, min=1.0) + cfg.weight_decay * ps[i].to(torch.float32)
+            ps[i].copy_((ps[i].to(torch.float32) - lr * delta).to(p.dtype))
+            vrs[i].copy_(vr)
+            vcs[i].copy_(vc)
+
     def per_leaf(g, p, v):
-        _chunked(cfg, upd_inner, p, g, v)
+        if p.dim() >= 3 and p.shape[0] == 1 and p.numel() * 4 > cfg.update_chunk_bytes:
+            upd_streamed(p, g, v)
+        else:
+            _chunked(cfg, upd_inner, p, g, v)
 
     with torch.no_grad():
         _map_params(per_leaf, grads, params, state["v"])

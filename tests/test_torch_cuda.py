@@ -218,11 +218,11 @@ def test_ssd_prefix_sums_take_the_plain_order(cuda, chunk):
     ``prefix_sum`` (XLA's blocks of 16) of dt A bit for bit: one level of
     block totals at mamba2's chunk of 256, two at 4096.  A sequential
     float32 sum gives other bits, so the check tells the orders apart."""
-    from repro_torch.kernels.ssd.kernel import ssd_scan_with_prefix_sums
+    from repro_torch.kernels.ssd.kernel import ssd_scan_for_grad
     from repro_torch.kernels.ssd.ref import prefix_sum
     b, l, nh, hd, ds = 1, 2 * chunk if chunk == 256 else chunk, 4, 64, 16
     args = _xbc_views(cuda, b, l, nh, hd, ds, torch.float32)
-    _, _, cs = ssd_scan_with_prefix_sums(*args, chunk=chunk)
+    _, _, cs, _ = ssd_scan_for_grad(*args, chunk=chunk)
     dt, A = args[1].cpu(), args[2].cpu()
     da = (dt * A).view(b, l // chunk, chunk, nh)
     want = prefix_sum(da, 2).permute(0, 1, 3, 2)
@@ -589,12 +589,115 @@ def test_flash_bwd_matches_plain_and_is_deterministic(cuda, name, dtype):
         assert float((x.float() - r).abs().max()) <= tol * float(r.abs().max())
 
 
-def test_ssd_op_raises_under_grad_on_cuda(cuda):
-    """No CUDA backward for the SSD scan yet: with gradients wanted it
-    raises, without them it launches."""
-    x, dt, A, B, C, D = _xbc_views(cuda, 2, 96, 8, 32, 16, torch.float32)
-    with pytest.raises(NotImplementedError, match="ssd_scan backward"):
-        tssd.ssd_op(x.detach().requires_grad_(True), dt, A, B, C, D, chunk=32)
-    with torch.no_grad():
-        y, _ = tssd.ssd_op(x, dt, A, B, C, D, chunk=32)
-    assert torch.isfinite(y).all()
+
+# the backward: (b, l, nh, hd, ds, chunk): reduced mamba2, two mamba2-780m
+# chunks, jamba's ds 16 over two chunks, ragged tiles, widths off the tiles
+SSD_BWD_CASES = {
+    "reduced_mamba2": (2, 96, 8, 32, 16, 32),
+    "mamba2_two_chunks": (1, 512, 8, 64, 128, 256),
+    "jamba_ds16": (1, 512, 16, 64, 16, 256),
+    "ragged_tiles": (1, 192, 3, 32, 16, 96),
+    "odd_dims": (1, 80, 3, 24, 40, 40),
+}
+
+
+def _ssd_bwd_inputs(cuda, name, dtype):
+    b, l, nh, hd, ds, chunk = SSD_BWD_CASES[name]
+    args = _xbc_views(cuda, b, l, nh, hd, ds, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn((b, l, nh, hd), generator=g, device=cuda).to(dtype)
+    dS = torch.randn((b, nh, hd, ds), generator=g, device=cuda)
+    return args, dy, dS, chunk
+
+
+def _ssd_float64_grads(args, dy, dS, chunk):
+    leaves = [t.detach().double().requires_grad_(True) for t in args]
+    y, st = tssd.ssd_ref(*leaves, chunk=chunk)
+    return torch.autograd.grad((y * dy.double()).sum() + (st * dS.double()).sum(), leaves)
+
+
+def _ssd_bwd_tol(dtype, name):
+    """Of each gradient's largest entry: float32 5e-5 (dA, one signed sum per
+    head over the batch's rows, 1e-4), bf16 2e-2."""
+    if dtype == torch.bfloat16:
+        return 2e-2
+    return 1e-4 if name == "dA" else 5e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(SSD_BWD_CASES))
+def test_ssd_bwd_matches_plain_and_float64_autograd(cuda, name, dtype):
+    from repro_torch.kernels.ssd.kernel import ssd_scan_for_grad
+    args, dy, dS, chunk = _ssd_bwd_inputs(cuda, name, dtype)
+    _, _, cs, s_in = ssd_scan_for_grad(*args, chunk=chunk)
+    got = tssd.ssd_scan_bwd(*args, dy, dS, cs, s_in, chunk=chunk)
+    plain = tssd.ssd_bwd_ref(*args, dy, dS, chunk=chunk)
+    oracle = _ssd_float64_grads(args, dy, dS, chunk)
+    for g, n, p, o in zip(got, ("dx", "ddt", "dA", "dB", "dC", "dD"), plain, oracle):
+        assert g.dtype == p.dtype and g.shape == p.shape, n
+        tol = _ssd_bwd_tol(dtype, n)
+        for ref in (p.double(), o):
+            assert float((g.double() - ref).abs().max()) <= tol * float(ref.abs().max()), n
+
+
+@pytest.mark.parametrize("name", ["mamba2_two_chunks", "jamba_ds16"])
+def test_ssd_bwd_is_bit_equal_over_two_calls_and_counts_them(cuda, name):
+    from repro_torch.kernels.ssd.kernel import ssd_scan_for_grad
+    args, dy, dS, chunk = _ssd_bwd_inputs(cuda, name, torch.bfloat16)
+    _, _, cs, s_in = ssd_scan_for_grad(*args, chunk=chunk)
+    before = tssd.bwd_launches.value
+    first = tssd.ssd_scan_bwd(*args, dy, dS, cs, s_in, chunk=chunk)
+    second = tssd.ssd_scan_bwd(*args, dy, None, cs, s_in, chunk=chunk)
+    third = tssd.ssd_scan_bwd(*args, dy, dS, cs, s_in, chunk=chunk)
+    assert tssd.bwd_launches.value == before + 3
+    assert all(torch.equal(a, c) for a, c in zip(first, third))
+    assert not torch.equal(first[0], second[0])  # the final state's gradient reaches dx
+
+
+def test_ssd_op_trains_through_the_backward_kernel(cuda):
+    """``ssd_op`` under grad: one forward and one backward launch, gradients
+    of xBC, dt, A and D against float64 autograd through the plain forward."""
+    b, l, nh, hd, ds, chunk = SSD_BWD_CASES["reduced_mamba2"]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    d_in = nh * hd
+    xbc = torch.randn((b, l, d_in + 2 * ds), generator=g, device=cuda).requires_grad_(True)
+    dt = (torch.rand((b, l, nh), generator=g, device=cuda) * 0.49 + 0.01).requires_grad_(True)
+    A = (-(torch.rand((nh,), generator=g, device=cuda) * 1.5 + 0.5)).requires_grad_(True)
+    D = torch.randn((nh,), generator=g, device=cuda).requires_grad_(True)
+    dy = torch.randn((b, l, nh, hd), generator=g, device=cuda)
+
+    def loss(xbc, dt, A, D, op):
+        x = xbc[..., :d_in].reshape(b, l, nh, hd)
+        y, _ = op(x, dt, A, xbc[..., d_in:d_in + ds], xbc[..., d_in + ds:], D, chunk=chunk)
+        return (y * dy.to(y.dtype)).sum()
+
+    f0, b0 = tssd.launches.value, tssd.bwd_launches.value
+    got = torch.autograd.grad(loss(xbc, dt, A, D, tssd.ssd_op), (xbc, dt, A, D))
+    assert (tssd.launches.value - f0, tssd.bwd_launches.value - b0) == (1, 1)
+    leaves = [t.detach().double().requires_grad_(True) for t in (xbc, dt, A, D)]
+    want = torch.autograd.grad(loss(*leaves, tssd.ssd_ref), leaves)
+    for n, x, w in zip(("xBC", "dt", "A", "D"), got, want):
+        tol = 1e-4 if n == "A" else 5e-5
+        assert float((x.double() - w).abs().max()) <= tol * float(w.abs().max()), n
+
+
+def test_ssd_bwd_rejects_what_it_cannot_take(cuda):
+    from repro_torch.kernels.ssd.kernel import ssd_scan_for_grad
+    args, dy, dS, chunk = _ssd_bwd_inputs(cuda, "reduced_mamba2", torch.float32)
+    _, _, cs, s_in = ssd_scan_for_grad(*args, chunk=chunk)
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        tssd.ssd_scan_bwd(*args, dy.transpose(2, 3).contiguous().transpose(2, 3), dS, cs,
+                          s_in, chunk=chunk)
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        tssd.ssd_scan_bwd(*args, dy.bfloat16(), dS, cs, s_in, chunk=chunk)
+    with pytest.raises(ValueError, match="dstate must be contiguous float32"):
+        tssd.ssd_scan_bwd(*args, dy, dS[:, :1], cs, s_in, chunk=chunk)
+    with pytest.raises(ValueError, match="cs must be the forward's"):
+        tssd.ssd_scan_bwd(*args, dy, dS, cs[:, :1], s_in, chunk=chunk)
+    with pytest.raises(ValueError, match="every tensor must lie on one CUDA device"):
+        tssd.ssd_scan_bwd(*args, dy, dS.cpu(), cs, s_in, chunk=chunk)
+    long = _xbc_views(cuda, 1, 2048, 2, 16, 16, torch.float32)
+    _, _, cs2, s_in2 = ssd_scan_for_grad(*long, chunk=2048)  # the forward takes 2048
+    dy2 = torch.zeros((1, 2048, 2, 16), device=cuda)
+    with pytest.raises(ValueError, match="chunk 2048 outside 1..1024"):
+        tssd.ssd_scan_bwd(*long, dy2, None, cs2, s_in2, chunk=2048)

@@ -26,12 +26,7 @@ from repro.models.ssm import conv_step as jax_conv_step  # noqa: E402
 from repro.models.ssm import ssd_decode_step as jax_ssd_decode_step  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.convert import params_from_flat, params_to_flat, to_tensor  # noqa: E402
-from repro_torch.launch.steps import (  # noqa: E402
-    make_prefill_step,
-    make_serve_step,
-    make_train_state,
-    make_train_step,
-)
+from repro_torch.launch.steps import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.models import Batch, build_model  # noqa: E402
 from repro_torch.models.attention import decode_attention  # noqa: E402
 from repro_torch.models.ssm import conv_step, ssd_decode_step  # noqa: E402
@@ -328,20 +323,3 @@ def test_decode_position_outside_the_cache_raises():
             tm.decode_step(params, cache, toks[:, 0], pos)
     with pytest.raises(ValueError, match="does not fit"):
         tm.prefill(params, Batch(tokens=toks), 4)
-
-
-def test_training_steps_raise(monkeypatch):
-    """Training builds for every family now; what still raises is the SSM
-    scan on the CUDA route with gradients wanted (no ssd_scan backward yet,
-    Queue 1 item 9b): forced here on CPU tensors, it refuses before any
-    launch instead of training on a detached output."""
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.optim import OptimizerConfig
-
-    tm = build_model(reduced(get_config("mamba2-780m")))
-    opt = OptimizerConfig()
-    state = make_train_state(tm, opt, 0, device="cpu")
-    toks = torch.from_numpy(_tokens(tm.cfg.vocab_size, 1, 8))
-    monkeypatch.setattr(ssd_ops, "all_on_cpu", lambda *t: False)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        make_train_step(tm, opt)(state, {"tokens": toks, "labels": toks})

@@ -248,6 +248,36 @@ def test_adafactor_chunking_changes_the_update():
     assert not torch.allclose(out[0], out[1], rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16], ids=["f32", "bf16"])
+def test_adafactor_one_layer_leaf_matches_jax(dtype):
+    """A leaf of one stacked layer, (1, experts, rows, cols), over
+    ``update_chunk_bytes``: JAX's ``lax.map`` leaves it whole; the port
+    walks its matrices in two passes with the whole leaf's RMS.  Three
+    updates, parameters and factored statistics at 1e-6."""
+    kw = dict(name="adafactor", lr=1e-2, warmup_steps=2, total_steps=10, update_chunk_bytes=256)
+    cfg, jcfg = OptimizerConfig(**kw), JOptimizerConfig(**kw)
+    rng = np.random.default_rng(7)
+    params_np = {"moe": {"w": rng.standard_normal((1, 3, 6, 8)).astype(dtype)}}
+    jinit, jupd = jax_make_optimizer(jcfg)
+    tinit, tupd = make_optimizer(cfg)
+    jp = _to_j(params_np)
+    jst = jinit(jp)
+    tp = _to_t(params_np)
+    tst = tinit(tp)
+    for i in range(3):
+        g = {"moe": {"w": (rng.standard_normal((1, 3, 6, 8)) * 10 ** i).astype(dtype)}}
+        jp, jst = jupd(_to_j(g), jst, jp)
+        tp, tst = tupd(_to_t(g), tst, tp)
+    got, want = params_to_flat({"p": tp, "s": tst}), _flat_np({"p": jp, "s": jst})
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        g = got[path]
+        if w.dtype.name == "bfloat16":
+            g = g.view(ml_dtypes.bfloat16)
+        np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64), rtol=1e-6,
+                                   atol=1e-7, err_msg=path)
+
+
 def test_schedule_and_clip_match_jax():
     """The schedule at step 0, inside the warmup, at its end, mid-decay
     and past the end; the clip with ``prescale`` and the norm it returns."""
@@ -267,6 +297,18 @@ def test_schedule_and_clip_match_jax():
             gg = got[path].view(ml_dtypes.bfloat16) if w.dtype.name == "bfloat16" else got[path]
             np.testing.assert_allclose(gg.astype(np.float64), w.astype(np.float64),
                                        rtol=1e-6, err_msg=path)
+
+
+def test_clip_scales_the_given_tensors_in_place():
+    """The train step's gradients are scaled where they lie (a copy of a
+    model's gradients would double their memory): the same tensors come
+    back, each scaled."""
+    given = _to_t(_opt_tree(4))
+    before = {path: t.clone() for path, t in flat_tensors(given)}
+    got, _ = clip_by_global_norm(given, 0.1, prescale=0.5)
+    assert got is given
+    for path, t in flat_tensors(got):
+        assert not torch.equal(t, before[path]), path
 
 
 # ------------------------------------------------------------------ train step

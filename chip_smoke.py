@@ -8,11 +8,11 @@ Phases, each of which passes or makes the script exit non-zero:
 1. environment: torch / CUDA / nvcc versions, the card's name and power
    limit, the TF32 flags (set off: float32 matmuls in full float32);
 2. build: ``nvcc`` builds every kernel under ``src/repro_torch/csrc``; the
-   count of HGMMA and HMMA instructions in the flash and ssd_scan
-   libraries' SASS, which must show both in each (wgmma for bf16, mma.sync
-   for the 3xTF32 float32 path); for the ssd_scan backward the FFMA,
-   HMMA and HGMMA counts (its products run on the CUDA cores); for the
-   int8 library the I2F count (and each I2F variant apart: integer
+   count of HGMMA and HMMA instructions in the flash (forward and
+   backward) and ssd_scan (forward and backward) libraries' SASS, which
+   must show both in each (wgmma for bf16, mma.sync for the 3xTF32 float32
+   path), and the SSD backward's FFMA count beside them; for the int8
+   library the I2F count (and each I2F variant apart: integer
    division emits them too), PRMT and HMMA; ptxas's registers and spills
    of every kernel;
 3. the four kernels (snapshot_patch, flash_attention, ssd_scan,
@@ -120,7 +120,11 @@ Phases, each of which passes or makes the script exit non-zero:
    step's shape (where the kernel called on each chunk alone, the
    inter-chunk state gradient dropped, must fail), at jamba-v0.1-52b's
    width (bf16 and f32) and over 32 chunks (f32 5e-5, dA 1e-4, bf16 2e-2
-   of each gradient's largest entry), two calls bit-equal; one
+   of each gradient's largest entry), two calls bit-equal, each case
+   printing the plan's head group, grid and waves, the chunk kernel's CTAs
+   an SM (the plan's, and the runtime's: fewer fails), registers and
+   spills, the scratch bytes and the tensor-core operations a call issues
+   beside the bound's; one
    float32 mamba2-780m step at full width (2 layers, b 2 x S 512: two
    chunks) against a CPU step whose SSD scan runs in float64, where that
    chunkwise backward must fail; mamba2-780m whole (48 layers, bf16, b 4
@@ -129,7 +133,7 @@ Phases, each of which passes or makes the script exit non-zero:
    steps, Adafactor accumulating in bf16: 1 flash forward and backward, 7
    ``ssd_scan`` forwards and backwards a step); each of the two with one
    more step profiled (device busy time, idle share, the kernels that
-   hold it, each SSD kernel's launches and time: the backward's four CUDA
+   hold it, each SSD kernel's launches and time: the backward's five CUDA
    kernels once per mamba layer);
 12. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
@@ -300,14 +304,14 @@ def phase_build(ctx, torch, rt):
                 print(f"ptxas[{name}]: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
-    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
-        sass = sass_counts(_build, name)
+    # wgmma (bf16) and mma.sync (3xTF32) in each; the SSD backward's FFMA
+    # count beside them (its elementwise steps and sums)
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"):
+        sass = sass_counts(_build, name, ("HGMMA", "HMMA", "FFMA") if name == "ssd_scan_bwd"
+                           else ("HGMMA", "HMMA"))
         emit({"phase": "build", f"{name}_sass": sass})
         if sass != "not measured" and (sass["HGMMA"] == 0 or sass["HMMA"] == 0):
             fail(f"{name}'s SASS lacks tensor-core instructions: {sass}")
-    # the SSD backward runs float32 FMAs on the CUDA cores, no tensor cores
-    emit({"phase": "build", "ssd_scan_bwd_sass": sass_counts(
-        _build, "ssd_scan_bwd", ("FFMA", "HMMA", "HGMMA"))})
     # the int8 kernel converts int8 to float by a byte permute; integer
     # division emits I2F too, so each I2F variant is counted apart
     emit({"phase": "build", "decode_attention_int8_sass": sass_counts(
@@ -2413,9 +2417,11 @@ def _profile_step(torch, tr, name, step_ms, bwd_launches):
     of its kernels (one stream, so their sum is the busy time), the idle
     share of the median unprofiled step ``step_ms``, the kernels that hold
     most of the time, and each SSD kernel's launches and time; each of the
-    ``ssd_scan`` backward's four CUDA kernels must run ``bwd_launches``
-    times (once per mamba layer)."""
+    ``ssd_scan`` backward's CUDA kernels must run ``bwd_launches`` times
+    (once per mamba layer)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd.kernel import BWD_KERNELS_PER_CALL
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2441,9 +2447,10 @@ def _profile_step(torch, tr, name, step_ms, bwd_launches):
                         for k, (n, us) in top],
         "ssd_kernels": {k: {"launches": n, "ms": us / 1e3} for k, (n, us) in sorted(ssd.items())}}})
     bwd = {k: n for k, (n, _) in ssd.items() if k.startswith("ssd_bwd_")}
-    if by_name and (len(bwd) != 4 or set(bwd.values()) != {bwd_launches}):
+    want = BWD_KERNELS_PER_CALL[torch.bfloat16]  # the train runs are bf16
+    if by_name and (len(bwd) != want or set(bwd.values()) != {bwd_launches}):
         fail(f"train {name}: the profiled step ran the ssd_scan backward's kernels {bwd}, "
-             f"want 4 kernels {bwd_launches} times each")
+             f"want {want} kernels {bwd_launches} times each")
 
 
 def _train_run(ctx, torch, rt, name, cfg, batch, seq, steps=10, *, opt=None,
@@ -2576,9 +2583,13 @@ def ssd_bwd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, cont
     state gradient dropped) must miss the same tolerance.  Times: the kernel
     (CUDA graph, and eager), the plain backward.  Tolerances of each
     gradient's largest entry: float32 5e-5 (dA 1e-4: one signed sum per head
-    over the batch's rows), bf16 2e-2."""
+    over the batch's rows), bf16 2e-2.  The plan's head group, grid, CTAs an
+    SM (designed, and as the runtime reports them: fewer fails), the chunk
+    kernel's registers and spills, scratch bytes and the tensor-core
+    operations a call issues beside the bound's."""
     from repro_torch.kernels.ssd import ssd_bwd_ref, ssd_ref, ssd_scan_bwd
-    from repro_torch.kernels.ssd.kernel import bwd_launch_plan, ssd_scan_for_grad
+    from repro_torch.kernels.ssd.kernel import (bwd_launch_plan, bwd_occupancy,
+                                                ssd_scan_for_grad)
 
     dev = torch.device("cuda")
     d_in = nh * hd
@@ -2639,6 +2650,10 @@ def ssd_bwd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, cont
     peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     plan = bwd_launch_plan(dtype, hd, ds, c, batch=b, heads=nh, seq=l)
+    occ = bwd_occupancy(dtype, ds)
+    if occ["ctas_per_sm"] < plan.ctas_per_sm:
+        fail(f"ssd_scan_bwd {label} ({dname}): {occ['ctas_per_sm']} chunk CTAs an SM, the plan "
+             f"counts on {plan.ctas_per_sm} ({occ})")
     case = {"kernel": "ssd_scan_bwd", "case": label, "dtype": dname, "b": b, "l": l,
             "nh": nh, "hd": hd, "ds": ds, "chunk": chunk,
             "max_abs_err": max(float((x.double() - r).abs().max()) for x, r in zip(got, oracle)),
@@ -2653,8 +2668,13 @@ def ssd_bwd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, cont
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "library": "none (no single call)",
-            "plan": {"grid_chunk": plan.grid_chunk, "grid_pass": plan.grid_pass,
-                     "smem_chunk": plan.smem_chunk, "scratch_bytes": plan.scratch_bytes,
+            "plan": {"head_group": plan.head_group, "grid_chunk": plan.grid_chunk,
+                     "waves": plan.waves, "grid_pass": plan.grid_pass,
+                     "smem_chunk": plan.smem_chunk, "ctas_per_sm": plan.ctas_per_sm,
+                     "ctas_per_sm_runtime": occ["ctas_per_sm"],
+                     "registers": occ["registers"], "spill_bytes": occ["spill_bytes"],
+                     "scratch_bytes": plan.scratch_bytes, "products": plan.products,
+                     "products_over_bound_ops": plan.products / ops,
                      "cuda_kernels_per_call": plan.kernels}}
     ctx.cases.append(case)
     emit(case)

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, on first use, into ``build/repro_torch/``
 at the root of the checkout, and bound with :mod:`ctypes` (no PyTorch
 headers: a build takes seconds, not minutes).  A library's file name carries
-a hash of its source and flags, so an edited source is rebuilt and a stale
-one is never loaded.  A failed build raises with the compiler's output.
+a hash of its source, the shared headers and the flags, so an edited source
+is rebuilt and a stale one is never loaded.  A failed build raises with the
+compiler's output.
 
 Nothing here runs at import time: the CPU tests import every module on a
 host without ``nvcc``.
@@ -57,7 +58,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every header under
+    ``csrc/`` and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 

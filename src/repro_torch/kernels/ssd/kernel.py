@@ -16,10 +16,12 @@ the launcher refuses a plan that differs from its instantiations.
 
 The backward (``csrc/ssd_scan_bwd.cu``, ``ssd_scan_bwd``) takes the
 forward's prefix sums and entering states (``ssd_scan_for_grad``) and
-enqueues four kernels a call (each chunk's own state gradient, the reverse
-state pass, the chunk gradients, the ordered sums over heads, batch and
-chunks); ``bwd_launches`` counts its calls and ``bwd_launch_plan`` is its
-plan.
+enqueues five kernels a call, float32 six (each chunk's own state
+gradient, the reverse state pass, float32's C.B^T once per chunk, the chunk
+gradients per 64-row tile and group of heads on the tensor cores, dL/da and
+ddt per chunk, the ordered sums over head groups, batch and chunks);
+``bwd_launches`` counts its calls, ``bwd_launch_plan`` is its plan and
+``bwd_occupancy`` reads its chunk kernel's occupancy from the runtime.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -262,11 +264,16 @@ def ssd_scan_for_grad(
 
 # ------------------------------------------------------------------ backward
 
-BWD_THREADS = 256
-BWD_MAX_CHUNK = 1024
-BWD_STATE_PADS = (16, 32, 64, 128)   # instantiated widths of ds
-BWD_KERNELS_PER_CALL = 4
-BWD_RED = BWD_THREADS + 16           # the block-sum scratch (kRed)
+BWD_MAX_CHUNK = 1024                 # the finish kernel's scans: 8 rows a thread
+BWD_STATE_PADS = STATE_PADS          # instantiated widths of ds
+BWD_KERNELS_PER_CALL = {torch.bfloat16: 5, torch.float32: 6}
+BWD_PASS_THREADS = 256               # the pass (4 state elements a thread) and the reduce
+BWD_MAX_GROUP = 4                    # heads a chunk-gradient CTA takes at most
+SMS = 132                            # H100 SXM
+SMEM_PER_SM = 233_472                # the SM's 228 KB, 1 KB of it reserved per CTA
+#: chunk-gradient CTAs an SM: __launch_bounds__(128, 2) caps the registers
+#: at 255 a thread, and ``bwd_smem`` keeps the shared memory under half
+BWD_CTAS_PER_SM = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,32 +286,106 @@ class SsdBwdPlan:
     state_pad: int           # ds zero-padded (the instantiated width)
     row_tiles: int           # 64-row tiles of a chunk
     chunks: int
+    head_group: int          # heads a chunk-gradient CTA takes, one after another
+    groups: int              # head groups: the dB / dC partials summed by the reduce
     smem_chunk: int          # dynamic shared memory of a chunk-gradient CTA
     smem_local: int          # ... of a local-state CTA
+    ctas_per_sm: int         # chunk-gradient CTAs an SM
     grid_local: Tuple[int, int]          # (batch x chunks, heads)
-    grid_pass: Tuple[int, int, int]      # (hd ds / 256, heads, batch)
-    grid_chunk: Tuple[int, int]          # (batch x chunks, heads)
+    grid_pass: Tuple[int, int, int]      # (hd ds / 1024, heads, batch)
+    grid_cb: Tuple[int, int, int]        # float32: (batch x chunks, tile pairs, 2)
+    grid_chunk: Tuple[int, int, int]     # (batch x chunks, head groups, row tiles)
+    grid_finish: Tuple[int, int]         # (batch x chunks, heads)
     grid_reduce: Tuple[int]              # (batch x seq x ds / 256,)
-    scratch_bytes: int       # local and dS_out states, per-head dB / dC partials, dA / dD partials
-    kernels: int = BWD_KERNELS_PER_CALL
-    threads: int = BWD_THREADS
+    scratch_bytes: int       # every scratch buffer of a call (``bwd_scratch``)
+    products: float          # tensor-core operations the kernels issue a call
+    kernels: int             # CUDA kernels a call enqueues
+    threads: int = THREADS
 
     @property
     def ctas(self) -> int:
         """CTAs of the largest kernel, the chunk gradients."""
-        x, y = self.grid_chunk
-        return x * y
+        x, y, z = self.grid_chunk
+        return x * y * z
+
+    @property
+    def waves(self) -> float:
+        """Chunk-gradient CTAs over the card's slots for them."""
+        return self.ctas / (SMS * self.ctas_per_sm)
 
 
-def bwd_smem(state_pad: int, chunk: int) -> Tuple[int, int]:
-    """Shared memory of a chunk-gradient and a local-state CTA: float32
-    tiles of 64 rows with odd row strides (hd padded to 64, plus one; ds
-    padded, plus one); the chunk kernel's x, dy and three product tiles, B
-    and C, seven per-row arrays of the chunk and the block-sum scratch."""
-    hs, ss = TILE + 1, state_pad + 1
-    chunk_floats = 5 * TILE * hs + 2 * TILE * ss + 7 * chunk + BWD_RED
-    local_floats = TILE * hs + TILE * ss + TILE
-    return 4 * chunk_floats, 4 * local_floats
+def bwd_smem(itemsize: int, state_pad: int) -> Tuple[int, int]:
+    """Shared memory of a chunk-gradient and a local-state CTA (the source's
+    ``BwdTiles``): 64-row tiles in the input's dtype, 128-byte slabs.  The
+    chunk CTA: the fixed pair (x or dy, B or C), a ring of such pairs (bf16
+    two stages, float32 one), bf16's two state planes (float32's state lies
+    over stage 0), cs and dt of the fixed tile and of each stage, the 4
+    warps' column sums and a block-sum scratch, 1 KiB of alignment.  The
+    local CTA: a ring of (dy, C) pairs (bf16 three, float32 two) with their
+    cs."""
+    h, sb = _tile_bytes(itemsize, TILE), _tile_bytes(itemsize, state_pad)
+    pair = h + sb
+    bf = itemsize == 2
+    stages = 2 if bf else 1
+    tiles = (1 + stages) * pair + (2 * sb if bf else 0)
+    row_floats = 2 * TILE + 2 * stages * TILE + 4 * TILE + 32
+    local_stages = 3 if bf else 2
+    return tiles + 4 * row_floats + 1024, local_stages * (pair + 4 * TILE) + 1024
+
+
+def bwd_scratch(batch: int, chunks: int, heads: int, head_dim: int, state: int, chunk: int,
+                groups: int, itemsize: int) -> Dict[str, int]:
+    """float32 elements of each scratch buffer, in the order they are cut
+    from one allocation (each rounded up to 16 bytes): each chunk's own
+    state gradient, the gradient of the state leaving it (bf16: its hi and
+    lo planes, the same bytes), the pass blocks' parts of <dS_out, S_in>,
+    U, V and each row tile's straddle sums per row, each column tile's dy.x,
+    the head groups' dB and dC partials, the per-chunk dA and dD terms, and
+    for float32 C.B^T and its transpose per tile pair."""
+    n = batch * chunks * heads
+    tiles = -(-chunk // TILE)
+    npass = -(-head_dim * state // (4 * BWD_PASS_THREADS))
+    sizes = {"local": n * head_dim * state, "dsout": n * head_dim * state,
+             "pE": n * npass, "rows": n * (2 + tiles) * chunk, "pDt": n * tiles,
+             "pB": batch * chunks * groups * chunk * state,
+             "pC": batch * chunks * groups * chunk * state, "pA": n, "pD": n,
+             "cbt": 0 if itemsize == 2 else batch * chunks * tiles * (tiles + 1) * TILE * TILE}
+    return {k: -(-v // 4) * 4 for k, v in sizes.items()}
+
+
+def bwd_products(itemsize: int, batch: int, chunks: int, heads: int, state_pad: int,
+                 chunk: int) -> float:
+    """Tensor-core operations (2 per multiply-add) the kernels issue a call,
+    at the padded widths (hd 64, ds ``state_pad``) and whole 64-row tiles:
+    per head and causal tile pair dy.x^T twice (its column and its row
+    tile's CTA), M^T dy, N^T C and N B once, and C.B^T twice (bf16: per head;
+    float32: per chunk, in both orientations); per head and tile the
+    outgoing state's two products and the incoming state's one; the local
+    state per chunk but the first.  bf16 counts each split operand's two
+    products and S_in's two planes; float32 each 3xTF32 product three times."""
+    t = -(-chunk // TILE)
+    pairs = t * (t + 1) // 2
+    mm = 2 * TILE * TILE                 # a 64 x 64 output, per unit of K
+    cb, dx = mm * state_pad, mm * TILE
+    per_pair = 2 * dx + dx + 2 * mm * state_pad
+    if itemsize == 2:
+        per_pair += 2 * cb
+        per_tile, local, scale, per_chunk = 2 * (cb + mm * state_pad) + 2 * mm * state_pad, 2, 1, 0
+    else:
+        per_tile, local, scale, per_chunk = cb + 2 * mm * state_pad, 1, 3, 2 * pairs * cb
+    local_ops = local * 2 * TILE * state_pad * t * TILE
+    per_head = pairs * per_pair + t * per_tile
+    return float(scale * batch * (heads * (chunks * per_head + (chunks - 1) * local_ops)
+                                  + chunks * per_chunk))
+
+
+def _head_group(tile_ctas: int, heads: int) -> int:
+    """The largest group of heads (4, 2, 1) that still leaves two full waves
+    of chunk-gradient CTAs; 1 where none does."""
+    for g in (BWD_MAX_GROUP, 2):
+        if tile_ctas * -(-heads // g) >= 2 * SMS * BWD_CTAS_PER_SM:
+            return g
+    return 1
 
 
 @functools.lru_cache(maxsize=256)
@@ -315,33 +396,53 @@ def bwd_launch_plan(dtype: torch.dtype, head_dim: int, state: int, chunk: int, *
     ``BWD_MAX_CHUNK``)."""
     if not 0 < chunk <= BWD_MAX_CHUNK:
         raise ValueError(f"chunk {chunk} outside 1..{BWD_MAX_CHUNK} for the backward: its "
-                         "per-row arrays of the chunk sit in shared memory")
+                         "finish kernel scans the chunk's rows 8 a thread")
     fwd = launch_plan(dtype, head_dim, state, chunk, batch=batch, heads=heads, seq=seq)
-    seq = fwd.chunks * chunk
+    itemsize = torch.empty((), dtype=dtype).element_size()
     state_pad = next(w for w in BWD_STATE_PADS if w >= state)
-    smem_chunk, smem_local = bwd_smem(state_pad, chunk)
-    if max(smem_chunk, smem_local) > SMEM_PER_BLOCK:  # not reached by the sizes above
-        raise ValueError(f"no tiling fits {SMEM_PER_BLOCK} bytes of shared memory")
-    chunks = fwd.chunks
-    state_elems = batch * chunks * heads * head_dim * state
-    scratch = 4 * (2 * state_elems + 2 * batch * seq * heads * state + 2 * batch * chunks * heads)
+    smem_chunk, smem_local = bwd_smem(itemsize, state_pad)
+    if BWD_CTAS_PER_SM * (smem_chunk + 1024) > SMEM_PER_SM:  # not reached by the sizes above
+        raise ValueError(f"the chunk CTA's {smem_chunk} bytes leave no two CTAs an SM")
+    chunks, tiles = fwd.chunks, fwd.row_tiles
+    group = _head_group(batch * chunks * tiles, heads)
+    groups = -(-heads // group)
+    scratch = bwd_scratch(batch, chunks, heads, head_dim, state, chunk, groups, itemsize)
     return SsdBwdPlan(head_dim=head_dim, state=state, chunk=chunk, state_pad=state_pad,
-                      row_tiles=fwd.row_tiles, chunks=chunks, smem_chunk=smem_chunk,
-                      smem_local=smem_local, grid_local=(batch * chunks, heads),
-                      grid_pass=(-(-head_dim * state // BWD_THREADS), heads, batch),
-                      grid_chunk=(batch * chunks, heads),
-                      grid_reduce=(-(-batch * seq * state // BWD_THREADS),),
-                      scratch_bytes=scratch)
+                      row_tiles=tiles, chunks=chunks, head_group=group, groups=groups,
+                      smem_chunk=smem_chunk, smem_local=smem_local,
+                      ctas_per_sm=BWD_CTAS_PER_SM, grid_local=(batch * chunks, heads),
+                      grid_pass=(-(-head_dim * state // (4 * BWD_PASS_THREADS)), heads, batch),
+                      grid_cb=(batch * chunks, tiles * (tiles + 1) // 2 if itemsize == 4 else 0, 2),
+                      grid_chunk=(batch * chunks, groups, tiles),
+                      grid_finish=(batch * chunks, heads),
+                      grid_reduce=(-(-batch * chunks * chunk * state // BWD_PASS_THREADS),),
+                      scratch_bytes=4 * sum(scratch.values()),
+                      products=bwd_products(itemsize, batch, chunks, heads, state_pad, chunk),
+                      kernels=BWD_KERNELS_PER_CALL[dtype])
 
 
 def _bwd_fn():
     if not _bwd_fn_cache:
-        fn = _build.load("ssd_scan_bwd").ssd_scan_bwd
+        lib = _build.load("ssd_scan_bwd")
+        fn, occ = lib.ssd_scan_bwd, lib.ssd_scan_bwd_occupancy
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 22 + [i] * 6 + [p, i, i, i, p]
-        fn.restype = ctypes.c_int
-        _bwd_fn_cache.append(fn)
+        fn.argtypes = [i] + [p] * 26 + [i] * 6 + [p, i, i, i, i, p]
+        occ.argtypes = [i, i, p]
+        fn.restype = occ.restype = ctypes.c_int
+        _bwd_fn_cache.extend((fn, occ))
     return _bwd_fn_cache[0]
+
+
+def bwd_occupancy(dtype: torch.dtype, state: int) -> dict:
+    """The chunk-gradient kernel of the instantiation for ``state``: CTAs an
+    SM, registers a thread and spilled bytes, as the CUDA runtime reports
+    them (the card's current device)."""
+    plan = bwd_launch_plan(dtype, 64, state, 256)
+    _bwd_fn()
+    out = (ctypes.c_int * 3)()
+    rc = _bwd_fn_cache[1](_DTYPES[dtype], plan.state_pad, out)
+    check_launch("ssd_scan_bwd_occupancy", rc)
+    return {"ctas_per_sm": out[0], "registers": out[1], "spill_bytes": out[2]}
 
 
 def ssd_scan_bwd(
@@ -384,14 +485,9 @@ def ssd_scan_bwd(
     ddt = torch.empty((b, l, nh), dtype=torch.float32, device=dev)
     dA = torch.empty((nh,), dtype=torch.float32, device=dev)
     dD = torch.empty_like(dA)
-    # scratch: each chunk's own state gradient and the gradient of the state
-    # leaving it; per-head partials of dB and dC; per-chunk partials of dA, dD
-    local = torch.empty((b, nc, nh, hd, ds), dtype=torch.float32, device=dev)
-    dsout = torch.empty_like(local)
-    pB = torch.empty((b, nc, nh, chunk, ds), dtype=torch.float32, device=dev)
-    pC = torch.empty_like(pB)
-    pA = torch.empty((b, nc, nh), dtype=torch.float32, device=dev)
-    pD = torch.empty_like(pA)
+    sizes = bwd_scratch(b, nc, nh, hd, ds, chunk, plan.groups, x.element_size())
+    scratch = torch.empty((sum(sizes.values()),), dtype=torch.float32, device=dev)
+    parts = dict(zip(sizes, scratch.split(list(sizes.values()))))
     strides = (ctypes.c_int64 * 17)(
         *x.stride()[:3], *dt.stride(), *B.stride()[:2], *C.stride()[:2], *dx.stride()[:3],
         *dB.stride()[:2], *dC.stride()[:2])
@@ -400,10 +496,13 @@ def ssd_scan_bwd(
         rc = _bwd_fn()(_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                        B.data_ptr(), C.data_ptr(), D.data_ptr(), dy.data_ptr(),
                        dstate.data_ptr() if dstate is not None else None, cs.data_ptr(),
-                       s_in.data_ptr(), local.data_ptr(), dsout.data_ptr(), dx.data_ptr(),
-                       ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                       dD.data_ptr(), pB.data_ptr(), pC.data_ptr(), pA.data_ptr(),
-                       pD.data_ptr(), b, l, nh, hd, ds, chunk, strides, plan.state_pad,
+                       s_in.data_ptr(), *(parts[k].data_ptr() for k in ("local", "dsout", "pE",
+                                                                        "rows", "pDt")),
+                       dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                       dC.data_ptr(), dD.data_ptr(),
+                       *(parts[k].data_ptr() for k in ("pB", "pC", "pA", "pD")),
+                       parts["cbt"].data_ptr() if sizes["cbt"] else None,
+                       b, l, nh, hd, ds, chunk, strides, plan.state_pad, plan.head_group,
                        plan.smem_chunk, plan.smem_local, stream)
     if rc in _ERRORS:
         raise RuntimeError(f"ssd_scan_bwd: {_ERRORS[rc]} (error {rc})")

@@ -591,13 +591,15 @@ def test_flash_bwd_matches_plain_and_is_deterministic(cuda, name, dtype):
 
 
 # the backward: (b, l, nh, hd, ds, chunk): reduced mamba2, two mamba2-780m
-# chunks, jamba's ds 16 over two chunks, ragged tiles, widths off the tiles
+# chunks, jamba's ds 16 over two chunks, ragged tiles, widths off the tiles,
+# two chunks of the largest the backward takes (16 row tiles)
 SSD_BWD_CASES = {
     "reduced_mamba2": (2, 96, 8, 32, 16, 32),
     "mamba2_two_chunks": (1, 512, 8, 64, 128, 256),
     "jamba_ds16": (1, 512, 16, 64, 16, 256),
     "ragged_tiles": (1, 192, 3, 32, 16, 96),
     "odd_dims": (1, 80, 3, 24, 40, 40),
+    "chunk_1024": (1, 2048, 3, 64, 128, 1024),
 }
 
 

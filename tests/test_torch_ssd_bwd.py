@@ -12,8 +12,10 @@ the card.  What is checked here:
   dropped, and, at mamba2-780m's own decays, dL/da summed per row and in
   reverse (the form autodiff takes) instead of the straddling form;
 - the backward's launch plan (``bwd_launch_plan``): every SSM configuration
-  and every CUDA-test shape, a chunk-parallel grid, every plan an
-  instantiation of the source;
+  and every CUDA-test shape fits two chunk CTAs an SM, the grid fills the
+  card at the train shapes, the scratch falls below what per-head
+  partials of dB and dC would take, every plan is an instantiation of the
+  source;
 - ``_SsdScan``'s plumbing, with the CUDA route forced on CPU tensors and the
   kernel entry points replaced by the plain versions: gradients through the
   mixer's xBC views, the final state's gradient, and a mamba2 train step
@@ -54,6 +56,7 @@ from repro_torch.kernels.ssd.kernel import (  # noqa: E402
     BWD_MAX_CHUNK,
     SMEM_PER_BLOCK,
     bwd_launch_plan,
+    bwd_smem,
 )
 from repro_torch.launch.steps import make_train_state, make_train_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -279,20 +282,34 @@ CUDA_SHAPES = {
     "mamba2_train_step_f32": (2, 512, 48, 64, 128, 256),
     "jamba_train": (1, 1024, 128, 64, 16, 256),
     "mamba2_l8192": (1, 8192, 48, 64, 128, 256),
+    "chunk_1024": (1, 2048, 3, 64, 128, 1024),
 }
 
 
-def _check_bwd_plan(plan, b, l, nh, hd, ds, chunk):
-    assert plan.state_pad >= ds and (plan.state_pad == 16 or plan.state_pad // 2 < ds)
+def _check_bwd_plan(plan, b, l, nh, hd, ds, chunk, dtype):
+    assert plan.state_pad >= ds and (plan.state_pad == 64 or plan.state_pad // 2 < ds)
     assert plan.chunks == l // chunk and plan.row_tiles == -(-chunk // 64)
-    assert max(plan.smem_chunk, plan.smem_local) <= SMEM_PER_BLOCK
-    assert plan.grid_chunk == plan.grid_local == (b * l // chunk, nh)
-    assert plan.grid_pass[0] * 256 >= hd * ds and plan.grid_pass[1:] == (nh, b)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert (plan.smem_chunk, plan.smem_local) == bwd_smem(itemsize, plan.state_pad)
+    # two chunk CTAs an SM: each CTA's shared memory plus its 1 KiB reserve
+    assert plan.ctas_per_sm == 2 and 2 * (plan.smem_chunk + 1024) <= 233_472
+    assert plan.smem_local <= SMEM_PER_BLOCK
+    assert plan.head_group in (1, 2, 4) and plan.groups == -(-nh // plan.head_group)
+    assert plan.grid_chunk == (b * l // chunk, plan.groups, plan.row_tiles)
+    assert plan.grid_local == plan.grid_finish == (b * l // chunk, nh)
+    assert plan.grid_pass[0] * 1024 >= hd * ds and plan.grid_pass[1:] == (nh, b)
     assert plan.grid_reduce[0] * 256 >= b * l * ds
-    assert plan.kernels == BWD_KERNELS_PER_CALL == 4
-    nc = l // chunk
-    assert plan.scratch_bytes == 4 * (2 * b * nc * nh * hd * ds + 2 * b * l * nh * ds
-                                      + 2 * b * nc * nh)
+    nc, nt = l // chunk, plan.row_tiles
+    pairs = nt * (nt + 1) // 2
+    # float32 forms C.B^T and its transpose once per (batch x chunk, tile pair)
+    assert plan.grid_cb == (b * nc, pairs if itemsize == 4 else 0, 2)
+    assert plan.kernels == BWD_KERNELS_PER_CALL[dtype] == (6 if itemsize == 4 else 5)
+    n = b * nc * nh
+    r4 = lambda v: -(-v // 4) * 4  # noqa: E731
+    want = (2 * r4(n * hd * ds) + r4(n * -(-hd * ds // 1024)) + r4(n * (2 + nt) * chunk)
+            + r4(n * nt) + 2 * r4(b * nc * plan.groups * chunk * ds) + 2 * r4(n)
+            + (b * nc * pairs * 2 * 64 * 64 if itemsize == 4 else 0))
+    assert plan.scratch_bytes == 4 * want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -303,7 +320,8 @@ def test_bwd_plan_takes_every_ssm_config(name, cfg, dtype):
     for l in (chunk, 4 * chunk):
         plan = bwd_launch_plan(dtype, cfg.ssm_head_dim, cfg.ssm_state, chunk, batch=2,
                                heads=cfg.ssm_heads, seq=l)
-        _check_bwd_plan(plan, 2, l, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk)
+        _check_bwd_plan(plan, 2, l, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, chunk,
+                        dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -311,25 +329,48 @@ def test_bwd_plan_takes_every_ssm_config(name, cfg, dtype):
 def test_bwd_plan_takes_every_cuda_shape(name, dtype):
     b, l, nh, hd, ds, chunk = CUDA_SHAPES[name]
     plan = bwd_launch_plan(dtype, hd, ds, chunk, batch=b, heads=nh, seq=l)
-    _check_bwd_plan(plan, b, l, nh, hd, ds, chunk)
+    _check_bwd_plan(plan, b, l, nh, hd, ds, chunk, dtype)
 
 
 def test_bwd_grid_is_chunk_parallel_at_the_train_shapes():
-    """mamba2-780m at b 4 x l 1024: 768 chunk-gradient CTAs (one per batch,
-    chunk and head), against the 192 of a grid that walked the chunks in
-    order; jamba's period at b 1: 512."""
-    plan = bwd_launch_plan(torch.bfloat16, 64, 128, 256, batch=4, heads=48, seq=1024)
-    assert plan.ctas == 768 > 4 * 48
-    assert plan.smem_chunk <= SMEM_PER_BLOCK < 2 * plan.smem_chunk  # one CTA an SM at ds 128
+    """The grid fills the card at the train shapes: two chunk CTAs an SM on
+    132 SMs and at least two waves of them.  mamba2-780m at b 4 x l 1024: a
+    CTA per (batch x chunk, 4 heads, 64-row tile), 768 CTAs, 2.9 waves, 12
+    dB / dC partials (one a head: 48); its float32 step (b 2 x l 512) one
+    head a CTA, 768; jamba's period at b 1: 2 heads a CTA, 1024."""
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = bwd_launch_plan(dtype, 64, 128, 256, batch=4, heads=48, seq=1024)
+        assert plan.grid_chunk == (16, 12, 4) and plan.ctas == 768
+        assert (plan.head_group, plan.groups) == (4, 12)
+        assert plan.ctas_per_sm == 2 and 2 < plan.waves < 3
+    step = bwd_launch_plan(torch.float32, 64, 128, 256, batch=2, heads=48, seq=512)
+    assert step.head_group == 1 and step.ctas == 768
     jamba = bwd_launch_plan(torch.bfloat16, 64, 16, 256, batch=1, heads=128, seq=1024)
-    assert jamba.ctas == 512 and jamba.state_pad == 16
-    assert 2 * (jamba.smem_chunk + 1024) <= 233_472  # two CTAs an SM at ds 16
+    assert jamba.head_group == 2 and jamba.ctas == 1024 and jamba.state_pad == 64
+    for plan in (step, jamba):
+        assert plan.waves >= 2
+
+
+def test_bwd_scratch_falls_below_the_per_head_partials():
+    """At mamba2-780m's train shape the bf16 scratch is 105.4 MB: the 12 head
+    groups' dB and dC partials (50.3 MB), the local and outgoing states
+    (50.3 MB), the per-row sums (4.8 MB); float32 adds C.B^T both ways per
+    tile pair (5.2 MB).  A design with per-head partials of dB and dC (and
+    float32 local and outgoing states, per-chunk dA / dD terms) takes 251.7
+    MB, 201 MB of it those partials."""
+    per_head = 4 * (2 * 16 * 48 * 64 * 128 + 2 * 4 * 1024 * 48 * 128 + 2 * 16 * 48)
+    assert per_head == 251_664_384
+    bf16 = bwd_launch_plan(torch.bfloat16, 64, 128, 256, batch=4, heads=48, seq=1024)
+    f32 = bwd_launch_plan(torch.float32, 64, 128, 256, batch=4, heads=48, seq=1024)
+    assert bf16.scratch_bytes == 105_424_896 < per_head
+    assert f32.scratch_bytes == 105_424_896 + 4 * 16 * 20 * 4096 < per_head
 
 
 def test_every_bwd_plan_is_an_instantiation():
     """The launcher refuses a plan it has no instantiation for: every
     (dtype, ds) the plan takes maps to one (dtype, padded ds) the source
-    instantiates, and the source's shared-memory sizes are the plan's."""
+    instantiates, and the source's shared-memory sizes and launch bounds are
+    the plan's."""
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
            / "ssd_scan_bwd.cu").read_text()
     inst = set(re.findall(r"launch<(float|__nv_bfloat16), (\d+)>", src))
@@ -340,15 +381,20 @@ def test_every_bwd_plan_is_an_instantiation():
             for hd in range(8, 65, 8):
                 seen.add((names[dtype], str(bwd_launch_plan(dtype, hd, ds, 256).state_pad)))
     assert seen == inst
-    assert "5 * kT * kHS + 2 * kT * kSS + 7 * c + kRed" in src
-    assert "kLocalFloats = kT * kHS + kT * kSS + kT" in src
+    assert "kStages = kBf ? 2 : 1" in src and "kLocalStages = kBf ? 3 : 2" in src
+    assert "kTiles = kBf ? kState + 2 * kSBytes : (1 + kStages) * kPair" in src
+    assert "kRowFloats = 2 * kT + 2 * kStages * kT + 4 * kT + 32" in src
+    assert "kChunk = kTiles + 4 * kRowFloats + 1024" in src
+    assert "kLocal = kLocalStages * (kPair + 4 * kT) + 1024" in src
+    assert "kCB = 2 * kSBytes + 1024" in src
     assert f"kMaxChunk = {BWD_MAX_CHUNK};" in src
-    assert "kRed = kThreads + 16" in src and "kThreads = 256" in src
+    assert "__launch_bounds__(kThreads, 2)\nssd_bwd_chunk" in src
+    assert src.count("<<<") == BWD_KERNELS_PER_CALL[torch.float32]
     p = bwd_launch_plan(torch.bfloat16, 64, 128, 256)
-    assert p.smem_chunk == 4 * (5 * 64 * 65 + 2 * 64 * 129 + 7 * 256 + 272)
-    assert p.smem_local == 4 * (64 * 65 + 64 * 129 + 64)
+    assert p.smem_chunk == 3 * 24576 + 2 * 16384 + 4 * (128 + 256 + 256 + 32) + 1024
+    assert p.smem_local == 3 * (24576 + 256) + 1024
     big = bwd_launch_plan(torch.float32, 64, 128, BWD_MAX_CHUNK)
-    assert big.smem_chunk <= SMEM_PER_BLOCK
+    assert big.smem_chunk == 2 * 49152 + 4 * (128 + 128 + 256 + 32) + 1024
 
 
 @pytest.mark.parametrize("hd,ds,chunk,match", [

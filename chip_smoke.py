@@ -97,7 +97,28 @@ Phases, each of which passes or makes the script exit non-zero:
    forward, finite logits, one flash launch per forward; then float32
    logits of every row against the CPU, routing compared first, where the
    experts' tanh gelu swapped for the exact one must fail;
-11. training: the flash backward kernel (``flash_attention_bwd``) against
+11. the fault and record paths: a two-worker faas-bench cluster on the
+   card whose first invocation crashes its worker (``FaultMatrix(
+   crash_after=1)``), its outputs bit-equal to a clean worker's, one crash,
+   the request recovered and the crashed worker's functions served by the
+   survivor from its device copies (patch launches in the failover); REAP
+   record mode (``Worker.record_function``) then two forced demand-paged
+   replays with 0 demand faults and equal outputs; the chaos replay CLI
+   ``repro_torch.launch.replay --chaos remote-outage`` on the card, with
+   conservation, the four typed failure keys, fatal faults inside the
+   outage, completions after it and fail-fast reads; the phase's patch
+   and flash launches;
+12. distribution, one rank through NCCL on a (1, 1) ("data", "model")
+   mesh: ``moe_ffn_sharded`` at olmoe-1b-7b's full width (64 experts, top
+   8, bf16, b 2 x S 256) against ``moe_ffn``, bit-equal on one rank, both
+   timed (median of 30 eager calls between CUDA events) and one call of
+   each profiled; a 2-layer olmoe-1b-7b forward under
+   ``logical_axis_rules`` against the same forward unbound, bit-equal (the
+   MoE layers must take ``moe_ffn_sharded``);
+   ``ef_compressed_mean`` of a (2560, 2560) CUDA tensor (one shot within
+   0.05, the 20-step error-feedback average within 0.01, a carried error);
+   stablelm-3b's ``Rules.param_specs`` distributed as DTensors;
+13. training: the flash backward kernel (``flash_attention_bwd``) against
    its plain version and against autograd through the plain forward in
    float64 at faas-bench, stablelm-3b (bf16 at the train run's b 4 x S
    1024, and f32), GQA 32:8, a gemma-2-style window 256 with softcap 50,
@@ -135,13 +156,13 @@ Phases, each of which passes or makes the script exit non-zero:
    more step profiled (device busy time, idle share, the kernels that
    hold it, each SSD kernel's launches and time: the backward's five CUDA
    kernels once per mamba layer);
-12. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
+14. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
 
 Then the ``{"kernels": [...]}`` summary (each kernel with its launches on
 the path named, and on every path), the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.
 
-About 9 minutes on one H100, the kernels' build included.
+About 9.5 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -2069,6 +2090,292 @@ def phase_serve(ctx, torch, rt):
         fail(f"launch.serve: unexpected rows {rows}")
 
 
+# ------------------------------------------------------- phases: faults, distrib
+
+def phase_faults(ctx, torch, rt):
+    """The worker's fault and record paths on the card: a two-worker
+    faas-bench cluster whose first invocation crashes its worker, against
+    a clean worker bit for bit; REAP record mode on that clean worker then
+    a forced demand-paged replay; the chaos replay CLI under
+    ``remote-outage``."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import FaultInjector, FaultMatrix, TierSpec
+    from repro_torch.launch import replay
+    from repro_torch.models import build_model
+    from repro_torch.serving import ColdStartOptions, InvocationRequest
+    from repro_torch.serving.trace import build_cluster, build_functions, request_tokens
+
+    cfg = get_config("faas-bench")
+    model = build_model(cfg)
+    fast = dict(remote_bw=10e9, remote_lat=0.0)
+    _reset()                                        # the phase's path starts here
+    t0 = time.perf_counter()
+    inj = FaultInjector(FaultMatrix(crash_after=1))
+    worker, specs = build_functions(os.path.join(rt, "faults", "clean"), cfg, model,
+                                    n_functions=2, device="cuda")
+    chaos, _ = build_cluster(os.path.join(rt, "faults", "chaos"), cfg, model,
+                             n_workers=2, n_functions=2, device="cuda",
+                             tiers=TierSpec(ram_bytes=64 << 20, faults=inj, **fast))
+    toks = {s.name: request_tokens(s, np.random.default_rng(3), cfg.vocab_size, seq=256)
+            for s in specs}
+
+    def req(s):
+        return InvocationRequest(function=s.name, tokens=toks[s.name],
+                                 options=ColdStartOptions(force_cold=True))
+
+    with chaos:
+        want = {s.name: worker.invoke(req(s)).output for s in specs}
+        patch_before = _counters()["snapshot_patch"].value
+        got = {s.name: chaos.invoke(req(s)) for s in specs}
+        patch_failover = _counters()["snapshot_patch"].value - patch_before
+        m = chaos.metrics()
+        dead = m["serving"]["dead_workers"]
+        survivor = next(w for w in chaos.workers if w.worker_id not in dead)
+        fam = survivor._pool_dev.get(cfg.name, {})
+        row = {"phase": "faults", "check": "failover", "seconds": time.perf_counter() - t0,
+               "n_worker_crashes":
+               m["serving"]["n_worker_crashes"], "dead_workers": dead,
+               "failures": m["serving"]["failures"],
+               "served_by": {n: r.worker_id for n, r in got.items()},
+               "survivor_device_leaves": len(fam),
+               "survivor_device": str(next(iter(fam.values())).device) if fam else None,
+               "patch_launches_in_failover": patch_failover,
+               "bit_equal": {n: bool(np.array_equal(r.output, want[n])) for n, r in got.items()}}
+        emit(row)
+    if m["serving"]["n_worker_crashes"] != 1 or len(dead) != 1:
+        fail(f"failover: {m['serving']['n_worker_crashes']} crashes, dead {dead}")
+    if m["serving"]["failures"]["fault_recovered"] < 1 or m["serving"]["failures"]["fault_fatal"]:
+        fail(f"failover: failures {m['serving']['failures']}")
+    if not all(row["bit_equal"].values()):
+        fail("failover: the chaos fleet's outputs differ from the clean worker's")
+    if any(w in dead for w in row["served_by"].values()):
+        fail(f"failover: a dead worker served {row['served_by']}")
+    if not fam or row["survivor_device"] != "cuda:0" or patch_failover <= 0:
+        fail("failover: the survivor did not serve from its device copies")
+
+    t0 = time.perf_counter()
+    fn = specs[0].name
+    rtoks = request_tokens(specs[0], np.random.default_rng(4), cfg.vocab_size, seq=256)
+
+    def cold(**opts):
+        return worker.invoke(InvocationRequest(
+            function=fn, tokens=rtoks,
+            options=ColdStartOptions(force_cold=True, **opts)))
+
+    baseline = cold()
+    recorded = worker.record_function(fn, rtoks, n_profiles=2)
+    first, second = cold(demand_paging=True), cold(demand_paging=True)
+    eager = cold(demand_paging=False)
+    rec = worker.registry.functions[fn].recording
+    emit({"phase": "faults", "check": "record_replay", "seconds": time.perf_counter() - t0,
+          "recording_profiles": rec.n_profiles if rec else 0,
+          "demand_paged": [first.metrics.demand_paged, second.metrics.demand_paged],
+          "demand_faults": [first.metrics.demand_faults, second.metrics.demand_faults],
+          "boot_s": {"baseline": baseline.boot_s, "demand": second.boot_s,
+                     "eager": eager.boot_s}})
+    if rec is None or rec.n_profiles < 2:
+        fail("record mode kept no recording")
+    if not (first.metrics.demand_paged and second.metrics.demand_paged) or eager.metrics.demand_paged:
+        fail("record/replay: demand paging was not taken as asked")
+    if second.metrics.demand_faults != 0:
+        fail(f"record/replay: {second.metrics.demand_faults} demand faults on the replay")
+    for name, r in (("record", recorded), ("first", first), ("second", second), ("eager", eager)):
+        if not np.array_equal(r.output, baseline.output):
+            fail(f"record/replay: the {name} output differs from the baseline")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        replay.main(["--chaos", "remote-outage", "--rps", "40", "--duration", "2.0",
+                     "--functions", "2", "--device", "cuda",
+                     "--root", os.path.join(rt, "faults", "replay")])
+    d = json.loads(buf.getvalue())
+    f = d["serving"]["failures"]
+    counts = _read()                                # the phase's path ends here
+    ctx.paths["faults"] = counts
+    emit({"phase": "faults", "check": "replay_cli", "seconds": time.perf_counter() - t0,
+          "device": d["device"], "conservation_holds": d["conservation_holds"],
+          "failures": f, "summary": {k: d["summary"][k] for k in ("n_submitted", "n_completed")},
+          "fail_fast_reads": d["tier_health"].get("fail_fast_reads"),
+          "chaos": d["chaos"]})
+    emit({"phase": "faults", "launches": counts})
+    if not d["conservation_holds"] or set(f) != {"shed", "timeout", "fault_recovered",
+                                                  "fault_fatal"}:
+        fail(f"replay CLI: conservation {d['conservation_holds']}, failures {f}")
+    if f["fault_fatal"] <= 0 or d["summary"]["n_completed"] <= 0:
+        fail(f"replay CLI: outage not seen or nothing completed: {f}, {d['summary']}")
+    if d["tier_health"].get("fail_fast_reads", 0) <= 0:
+        fail(f"replay CLI: no fail-fast reads in {d['tier_health']}")
+    if counts["snapshot_patch"] <= 0 or counts["flash_attention"] <= 0:
+        fail(f"faults: patch / flash not on the path: {counts}")
+
+
+def _profile_call(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device time of its
+    kernels (one stream, so their sum is the busy time), their number, and
+    the kernels that hold most of it; ``{}`` where the trace shows no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        return {}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"device_busy_ms": sum(us for _, us in by_name.values()) / 1e3,
+            "kernels": sum(n for n, _ in by_name.values()),
+            "top_kernels": [{"name": k[:70], "launches": n, "ms": us / 1e3}
+                            for k, (n, us) in top]}
+
+
+def phase_distrib(ctx, torch, rt):
+    """The distribution layer on the card, one rank through NCCL on a (1, 1)
+    ("data", "model") mesh: ``moe_ffn_sharded`` at olmoe-1b-7b's full width
+    against ``moe_ffn``, a 2-layer olmoe forward under the binding against
+    the same forward unbound, ``ef_compressed_mean`` of a CUDA tensor, and
+    stablelm-3b's parameter specs distributed as DTensors."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.distrib import Rules, default_rules, fingerprint, logical_axis_rules
+    from repro_torch.distrib.compress import ef_compressed_mean
+    from repro_torch.models import Batch, build_model, moe, transformer
+    from repro_torch.models.config import LayerKind
+    from repro_torch.models.transformer import init_layer, torch_dtype
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        full = get_config("olmoe-1b-7b")
+        cfg = dataclasses.replace(full, num_layers=2)
+        b, s = 2, 256
+        rules = default_rules(mesh, cfg, batch=b)
+        emit({"phase": "distrib", "mesh": fingerprint(mesh), "backend": dist.get_backend(),
+              "rules": {k: v for k, v in rules.items() if v}})
+        gen = torch.Generator(device="cuda").manual_seed(11)
+
+        def make(shape, dtype, fill, scale=0.02):
+            x = torch.randn(shape, generator=gen, dtype=torch.float32, device="cuda")
+            return (x * scale).to(dtype)
+
+        ffn = init_layer(cfg, LayerKind("attn", "moe"), make)["ffn"]
+        x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+            torch_dtype(cfg.dtype))
+        _reset()                                    # the phase's path starts here
+        with logical_axis_rules(mesh, rules):
+            y_sh, aux_sh = moe.moe_ffn_sharded(ffn, x, cfg)
+        y, aux = moe.moe_ffn(ffn, x, cfg)
+        ys, yr = y_sh.float(), y.float()
+        err = float((ys - yr).abs().max())
+        scale = float(yr.abs().max())
+        bit_equal = float((y_sh == y).float().mean())
+        with logical_axis_rules(mesh, rules):
+            sh_ms = eager_ms(torch, lambda: moe.moe_ffn_sharded(ffn, x, cfg))
+            sh_prof = _profile_call(torch, lambda: moe.moe_ffn_sharded(ffn, x, cfg))
+        plain_ms = eager_ms(torch, lambda: moe.moe_ffn(ffn, x, cfg))
+        plain_prof = _profile_call(torch, lambda: moe.moe_ffn(ffn, x, cfg))
+        emit({"phase": "distrib", "check": "moe_ffn_sharded", "shape": [b, s, cfg.d_model],
+              "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok, "dtype": cfg.dtype,
+              "max_abs_err": err, "max_abs_y": scale, "bit_equal_fraction": bit_equal,
+              "aux": [float(aux_sh), float(aux)], "tolerance": "bit-equal on one rank",
+              "moe_ffn_sharded_ms": sh_ms, "moe_ffn_ms": plain_ms,
+              "timing": "median of 30 eager calls between CUDA events", "card": ctx.card,
+              "profiled_call": {"moe_ffn_sharded": sh_prof, "moe_ffn": plain_prof}})
+        # one rank: no token is gathered, no sum has a second term, and the
+        # routing, capacity and expert products are moe_ffn's own
+        if not torch.isfinite(ys).all() or not torch.equal(y_sh, y):
+            fail(f"moe_ffn_sharded differs from moe_ffn by {err} (max |y| {scale})")
+        if float(aux_sh) != float(aux):
+            fail(f"moe_ffn_sharded aux {float(aux_sh)} != {float(aux)}")
+        del ffn, x, y, y_sh
+
+        model = build_model(cfg)
+        params = model.init(0, device="cuda")
+        tokens = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, size=(b, s)).astype(np.int64)).cuda()
+        calls = []
+        inner = transformer.moe_ffn_sharded
+        transformer.moe_ffn_sharded = lambda *a, **k: calls.append(1) or inner(*a, **k)
+        try:
+            with torch.no_grad():
+                with logical_axis_rules(mesh, rules):
+                    bound = model.logits(params, Batch(tokens=tokens))
+                unbound = model.logits(params, Batch(tokens=tokens))
+        finally:
+            transformer.moe_ffn_sharded = inner
+        ferr = float((bound - unbound).abs().max())
+        fscale = float(unbound.abs().max())
+        emit({"phase": "distrib", "check": "olmoe forward under the binding",
+              "layers": cfg.num_layers, "tokens": [b, s], "moe_ffn_sharded_calls": len(calls),
+              "max_abs_err": ferr, "max_abs_logit": fscale, "tolerance": "bit-equal on one rank"})
+        if len(calls) != cfg.num_layers:
+            fail(f"the bound forward called moe_ffn_sharded {len(calls)} times")
+        if not torch.isfinite(bound).all() or not torch.equal(bound, unbound):
+            fail(f"the bound olmoe forward differs from the unbound one by {ferr}")
+        del params, bound, unbound
+        _free(torch)
+
+        part = torch.randn((2560, 2560), generator=gen, device="cuda")
+        mean, e = ef_compressed_mean(part, torch.zeros_like(part), mesh, "data")
+        one_shot = float((mean - part).abs().max())
+        carried = float(e.abs().sum())
+        acc, e = torch.zeros_like(part), torch.zeros_like(part)
+        for _ in range(20):
+            m, e = ef_compressed_mean(part, e, mesh, "data")
+            acc += m
+        avg_err = float((acc / 20 - part).abs().max())
+        ef_ms = eager_ms(torch, lambda: ef_compressed_mean(part, e, mesh, "data"))
+        emit({"phase": "distrib", "check": "ef_compressed_mean", "shape": list(part.shape),
+              "one_shot_max_err": one_shot, "avg20_max_err": avg_err, "carried_error": carried,
+              "ms": ef_ms, "tolerance": "one shot 0.05, 20-step average 0.01"})
+        if one_shot >= 0.05 or avg_err >= 0.01 or carried <= 0:
+            fail(f"ef_compressed_mean: one shot {one_shot}, 20 steps {avg_err}, "
+                 f"carried {carried}")
+        del part, mean, e, acc
+
+        scfg = dataclasses.replace(get_config("stablelm-3b"), num_layers=2)
+        smodel = build_model(scfg)
+        sparams = smodel.init(0, device="cuda")
+        r = Rules(mesh)
+        dparams = r.distribute(sparams, r.param_specs(scfg))
+        leaves = []
+
+        def walk(a, d):
+            if isinstance(a, dict):
+                for k in a:
+                    walk(a[k], d[k])
+            else:
+                leaves.append((a, d))
+
+        walk(sparams, dparams)
+        ok = all(isinstance(d, DTensor) and torch.equal(d.to_local(), a) for a, d in leaves)
+        emit({"phase": "distrib", "check": "stablelm-3b params as DTensors",
+              "leaves": len(leaves), "all_dtensor_and_equal": ok,
+              "placements": str(dparams["blocks"]["pos0"]["wq"].placements)})
+        if not ok:
+            fail("stablelm-3b: a distributed leaf is not a DTensor equal to its tensor")
+        counts = _read()                            # the phase's path ends here
+        ctx.paths["distrib"] = counts
+        emit({"phase": "distrib", "launches": counts})
+        if counts["flash_attention"] != 2 * cfg.num_layers:
+            fail(f"distrib: flash launches {counts['flash_attention']} != 2 forwards x layers")
+        del sparams, dparams, leaves
+        _free(torch)
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------------------------ phase 11
 
 def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
@@ -2866,7 +3173,8 @@ def summary(ctx):
 PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels),
           ("faas", phase_faas), ("stablelm", phase_stablelm), ("mamba2", phase_mamba2),
           ("olmoe", phase_olmoe), ("decode", phase_decode), ("encdec", phase_encdec),
-          ("grok", phase_grok), ("train", phase_train),
+          ("grok", phase_grok), ("faults", phase_faults), ("distrib", phase_distrib),
+          ("train", phase_train),
           ("serve", phase_serve))
 
 

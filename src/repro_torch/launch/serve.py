@@ -18,19 +18,23 @@ from __future__ import annotations
 import argparse
 import json
 import tempfile
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs import get_config, reduced
+from ..core import FaultInjector
 from ..device import resolve_device
 from ..models import build_model
 from ..serving import (
     AdmissionConfig,
     AutoscaleConfig,
+    Cluster,
+    FunctionSpec,
     StealConfig,
     Strategy,
     TRACE_PATTERNS,
+    TraceReplayReport,
     build_cluster,
     make_policy,
     make_trace,
@@ -52,32 +56,17 @@ def _parse_autoscale(value: str) -> AutoscaleConfig:
         ) from None
 
 
-def main(argv: Optional[List[str]] = None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--family", default="gemma-2b")
+def add_fleet_flags(ap: argparse.ArgumentParser, *, rps: float, seed: int) -> None:
+    """The flags of the fleet and of its seeded trace, which this CLI and
+    ``launch.replay`` share (each with its own ``--rps`` and ``--seed``
+    defaults, those of its reference CLI)."""
     ap.add_argument("--functions", type=int, default=4)
-    ap.add_argument("--requests", type=int, default=24)
-    ap.add_argument("--cold-fraction", type=float, default=0.5)
-    ap.add_argument("--strategies", nargs="*", default=None,
-                    choices=[s.value for s in Strategy],
-                    help="strategies to compare (default: all); in --trace "
-                         "mode the first (or snapfaas) drives the replay")
     ap.add_argument("--workers", type=int, default=2)
-    ap.add_argument("--policy", default="lru", choices=sorted(POLICIES))
-    ap.add_argument("--zipf-alpha", type=float, default=None,
-                    help="skew the trace (Zipf exponent); default round-robin")
-    ap.add_argument("--trace", default=None, choices=sorted(TRACE_PATTERNS),
-                    help="trace-driven mode: arrival pattern to generate "
-                         "and replay through the admission layer")
-    ap.add_argument("--rps", type=float, default=200.0,
+    ap.add_argument("--rps", type=float, default=rps,
                     help="mean arrival rate of the generated trace")
     ap.add_argument("--duration", type=float, default=2.0,
                     help="trace window (s)")
-    ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--queue-depth", type=int, default=32,
-                    help="per-worker admission queue bound")
-    ap.add_argument("--concurrency", type=int, default=2,
-                    help="per-worker execution concurrency cap")
+    ap.add_argument("--seed", type=int, default=seed)
     ap.add_argument("--time-scale", type=float, default=1.0,
                     help="arrival-time multiplier (0 = replay as fast "
                          "as possible)")
@@ -90,53 +79,93 @@ def main(argv: Optional[List[str]] = None) -> None:
                     metavar="MIN:MAX",
                     help="trace mode: autoscale the worker fleet between "
                          "MIN and MAX during the replay (starts at MIN)")
-    ap.add_argument("--root", default=None)
+    ap.add_argument("--root", default=None,
+                    help="cluster root (default: a fresh temp dir)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device the workers serve on (cpu: plain kernel "
                          "versions, for testing)")
-    args = ap.parse_args(argv)
 
+
+def start_fleet(args, cfg, *, n_workers: int, prefix: str,
+                **cluster_kw) -> Tuple[torch.device, Cluster, List[FunctionSpec]]:
+    """The device of ``--device`` (the card unless ``cpu``; no fallback),
+    float32 matmuls in full float32 (reference numerics), and the cluster
+    of ``cfg``'s function variants on it, under ``--root`` or a fresh temp
+    dir."""
     device = resolve_device(args.device)
-    # float32 matmuls in full float32 (reference numerics), stated and set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    root = args.root or tempfile.mkdtemp(prefix="repro_torch_serve_")
-    cfg = reduced(get_config(args.family))
-    model = build_model(cfg)
+    root = args.root or tempfile.mkdtemp(prefix=prefix)
+    cluster, specs = build_cluster(
+        root, cfg, build_model(cfg), n_workers=n_workers,
+        n_functions=args.functions, device=device, placement=args.placement,
+        steal=StealConfig() if args.steal else None, **cluster_kw)
+    return device, cluster, specs
+
+
+def replay_seeded_trace(cluster: Cluster, specs: List[FunctionSpec], args, *,
+                        pattern: str, strategy: str, zipf_alpha: float = 1.1,
+                        injector: Optional[FaultInjector] = None,
+                        **replay_kw) -> Tuple[TraceReplayReport, Dict]:
+    """Replay the seeded ``pattern`` trace of ``args`` (rate, window,
+    seed, time scale, autoscale) through ``cluster``, which this enters;
+    returns the report and the fleet's metrics after it.  Under a fault
+    ``injector`` (the one in the cluster's tiers) every function is first
+    demoted to the remote tier, so cold restores take the faulted path,
+    and the injector's clock is re-armed: its outage window counts from
+    its creation, which registration would otherwise have used up."""
+    trace = make_trace(pattern, rps=args.rps, duration_s=args.duration,
+                       n_functions=len(specs), seed=args.seed,
+                       zipf_alpha=zipf_alpha)
+    with cluster:
+        if injector is not None:
+            for spec in specs:
+                cluster.worker_for(spec.name).registry.demote_function(spec.name)
+            injector.reset_clock()
+        report = cluster.replay_trace(trace, specs, strategy=strategy,
+                                      autoscale=args.autoscale,
+                                      time_scale=args.time_scale, **replay_kw)
+        return report, cluster.metrics()
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--family", default="gemma-2b")
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--cold-fraction", type=float, default=0.5)
+    ap.add_argument("--strategies", nargs="*", default=None,
+                    choices=[s.value for s in Strategy],
+                    help="strategies to compare (default: all); in --trace "
+                         "mode the first (or snapfaas) drives the replay")
+    ap.add_argument("--policy", default="lru", choices=sorted(POLICIES))
+    ap.add_argument("--zipf-alpha", type=float, default=None,
+                    help="skew the trace (Zipf exponent); default round-robin")
+    ap.add_argument("--trace", default=None, choices=sorted(TRACE_PATTERNS),
+                    help="trace-driven mode: arrival pattern to generate "
+                         "and replay through the admission layer")
+    ap.add_argument("--queue-depth", type=int, default=32,
+                    help="per-worker admission queue bound")
+    ap.add_argument("--concurrency", type=int, default=2,
+                    help="per-worker execution concurrency cap")
+    add_fleet_flags(ap, rps=200.0, seed=1)
+    args = ap.parse_args(argv)
 
     n_workers = args.workers
     if args.autoscale is not None and args.trace is not None:
         n_workers = args.autoscale.min_workers
-    cluster, fns = build_cluster(
-        root, cfg, model, n_workers=n_workers, n_functions=args.functions,
-        device=device,
-        policy_factory=lambda: make_policy(args.policy),
-        placement=args.placement,
-        steal=StealConfig() if args.steal else None,
-    )
+    device, cluster, fns = start_fleet(
+        args, reduced(get_config(args.family)), n_workers=n_workers,
+        prefix="repro_torch_serve_", policy_factory=lambda: make_policy(args.policy))
     print(json.dumps({"device": str(device),
                       "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                                      "cudnn": torch.backends.cudnn.allow_tf32}}))
     if args.trace is not None:
-        with cluster:
-            trace = make_trace(
-                args.trace, rps=args.rps, duration_s=args.duration,
-                n_functions=len(fns), seed=args.seed,
-                zipf_alpha=(1.1 if args.zipf_alpha is None
-                            else args.zipf_alpha),
-            )
-            report = cluster.replay_trace(
-                trace, fns,
-                strategy=(args.strategies[0] if args.strategies else
-                          Strategy.SNAPFAAS),
-                admission=AdmissionConfig(
-                    queue_depth=args.queue_depth,
-                    worker_concurrency=args.concurrency,
-                ),
-                autoscale=args.autoscale,
-                time_scale=args.time_scale,
-            )
-            fleet = cluster.metrics()
+        report, fleet = replay_seeded_trace(
+            cluster, fns, args, pattern=args.trace,
+            strategy=args.strategies[0] if args.strategies else Strategy.SNAPFAAS,
+            zipf_alpha=1.1 if args.zipf_alpha is None else args.zipf_alpha,
+            admission=AdmissionConfig(queue_depth=args.queue_depth,
+                                      worker_concurrency=args.concurrency))
         print(json.dumps({"trace_serving": report.summary()}, indent=1))
         print(json.dumps({"scheduler": fleet["scheduler"]}, indent=1))
         print(json.dumps({"serving": fleet["serving"]}, indent=1))

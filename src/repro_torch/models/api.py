@@ -16,6 +16,7 @@ import torch
 
 from . import blocks as blocks_mod
 from ..device import DeviceLike, resolve_device
+from ..distrib.act import shard
 from .config import ModelConfig
 from .layers import apply_norm, sinusoidal_positions, softcap
 from .transformer import (
@@ -71,7 +72,7 @@ class Model:
         if self.cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(self.cfg.d_model), dtype=h.dtype,
                                  device=h.device)
-        return h
+        return shard(h, "batch", "seq", "embed")
 
     def _logits_head(self, params, h: torch.Tensor) -> torch.Tensor:
         W = (params["embed"]["table"] if self.cfg.tie_embeddings

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distrib.act import shard
 from .layers import softcap as _softcap
 
 NEG_INF = -1e30
@@ -132,8 +133,9 @@ def decode_attention(
     P·V product, which accumulates in float32."""
     b, _, nh, hd = q.shape
     _, S, nkv, _ = k_cache.shape
-    qr = q.reshape(b, nkv, nh // nkv, hd)
+    qr = shard(q.reshape(b, nkv, nh // nkv, hd), "batch", "kv_heads", None, "cache_hd")
     s = torch.einsum("bgrd,bkgd->bgrk", qr.float(), k_cache.float()) * scale
+    s = shard(s, "batch", "kv_heads", None, None)
     if logit_softcap > 0.0:
         s = _softcap(s, logit_softcap)
     if isinstance(pos, torch.Tensor):

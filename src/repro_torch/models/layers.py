@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distrib.act import shard
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
@@ -88,9 +90,13 @@ def sinusoidal_positions(seq: int, d_model: int) -> np.ndarray:
 # ----------------------------------------------------------------------- MLP
 
 def mlp(params, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
-    h = x @ params["w_in"]
+    # weights to their compute (TP) layout before use; shard leaves an x of
+    # other than three dims, and so its products, as they are
+    w_in = shard(params["w_in"], None, "ffn")
+    w_out = shard(params["w_out"], "ffn", None)
+    h = shard(x @ w_in, "batch", "seq", "ffn")
     if gated:
-        h = activation(x @ params["w_gate"], act) * h
+        h = activation(x @ shard(params["w_gate"], None, "ffn"), act) * h
     else:
         h = activation(h, act)
-    return h @ params["w_out"]
+    return shard(h @ w_out, "batch", "seq", "embed")

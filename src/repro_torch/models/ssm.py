@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distrib.act import shard
 from ..kernels.ssd import ssd_op
 from .layers import rmsnorm
 
@@ -83,8 +84,11 @@ def mamba_mixer(params, h: torch.Tensor, cfg, *, cache: Optional[dict] = None,
     in JAX."""
     b, l, _ = h.shape
     d_in, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z = torch.einsum("bld,de->ble", h, params["w_z"])
-    xBC = torch.einsum("bld,de->ble", h, params["w_xBC"])  # (b, l, d_in + 2 ds)
+    w_z = shard(params["w_z"], None, "inner")
+    w_xBC = shard(params["w_xBC"], None, None)
+    z = shard(torch.einsum("bld,de->ble", h, w_z), "batch", "seq", "inner")
+    xBC = shard(torch.einsum("bld,de->ble", h, w_xBC),  # (b, l, d_in + 2 ds)
+                "batch", "seq", None)
     dt_raw = torch.einsum("bld,dn->bln", h, params["w_dt"])
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
@@ -114,4 +118,4 @@ def mamba_mixer(params, h: torch.Tensor, cfg, *, cache: Optional[dict] = None,
                      if l >= width - 1 else None)
     y = y * F.silu(z.float()).to(y.dtype)
     y = rmsnorm(y, params["gate_norm"])
-    return torch.einsum("ble,ed->bld", y, params["w_out"]), new_cache
+    return torch.einsum("ble,ed->bld", y, shard(params["w_out"], "inner", None)), new_cache

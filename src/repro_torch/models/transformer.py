@@ -30,8 +30,9 @@ from . import blocks as blocks_mod
 from ..kernels.flash_attention import flash_attention_op
 from .attention import decode_attention
 from .config import LayerKind, ModelConfig
+from ..distrib.act import current_binding, shard
 from .layers import apply_norm, apply_rope, mlp, softcap
-from .moe import moe_ffn
+from .moe import moe_ffn, moe_ffn_sharded
 from .ssm import mamba_mixer
 
 PyTree = Any
@@ -201,7 +202,9 @@ def _attend_decode(cfg: ModelConfig, p: PyTree, x: torch.Tensor, cache: PyTree,
         k = apply_rope(k, posb, cfg.rope_theta)
     cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    return decode_attention(q, cache["k"], cache["v"], pos, scale=_scale(cfg),
+    k_cache = shard(cache["k"], "batch", None, "kv_heads", "cache_hd")
+    v_cache = shard(cache["v"], "batch", None, "kv_heads", "cache_hd")
+    return decode_attention(q, k_cache, v_cache, pos, scale=_scale(cfg),
                             window=window, logit_softcap=cfg.attn_logit_softcap)
 
 
@@ -236,15 +239,22 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             attn = _attend_decode(cfg, p, x, cache, pos, window)
             new_cache = cache
         else:
-            q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-            k = torch.einsum("bld,dgk->blgk", x, p["wk"])
-            v = torch.einsum("bld,dgk->blgk", x, p["wv"])
+            wq = shard(p["wq"], None, "heads", None)
+            wk = shard(p["wk"], None, "kv_heads", None)
+            wv = shard(p["wv"], None, "kv_heads", None)
+            q = shard(torch.einsum("bld,dhk->blhk", x, wq),
+                      "batch", "seq", "heads", "head_dim")
+            k = shard(torch.einsum("bld,dgk->blgk", x, wk),
+                      "batch", "seq", "kv_heads", "head_dim")
+            v = shard(torch.einsum("bld,dgk->blgk", x, wv),
+                      "batch", "seq", "kv_heads", "head_dim")
             if cfg.use_rope:
                 q = apply_rope(q, positions, cfg.rope_theta)
                 k = apply_rope(k, positions, cfg.rope_theta)
-            attn = flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
-                                      window=window, softcap=cfg.attn_logit_softcap,
-                                      prefix_len=prefix_len)
+            attn = shard(flash_attention_op(q, k, v, scale=_scale(cfg), causal=causal,
+                                            window=window, softcap=cfg.attn_logit_softcap,
+                                            prefix_len=prefix_len),
+                         "batch", "seq", "heads", "head_dim")
             if make_cache:
                 pad = cache_len - k.shape[1]
                 if pad < 0:
@@ -252,10 +262,11 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
                                      f"cache of {cache_len}")
                 new_cache = {"k": _pad(k, (0, 0, 0, 0, 0, pad)),
                              "v": _pad(v, (0, 0, 0, 0, 0, pad))}
-        h = h + torch.einsum("blhk,hkd->bld", attn, p["wo"])
+        wo = shard(p["wo"], "heads", None, None)
+        h = h + shard(torch.einsum("blhk,hkd->bld", attn, wo), "batch", "seq", "embed")
     else:  # mamba
         out, mcache = mamba_mixer(p, x, cfg, cache=cache, decode=decode)
-        h = h + out
+        h = h + shard(out, "batch", "seq", "embed")
         if decode:
             for leaf in ("conv", "ssm"):
                 cache[leaf].copy_(mcache[leaf])
@@ -282,8 +293,10 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             # and decode agrees with the teacher-forced forward; the forward
             # and prefill keep the config's (they may drop), as in JAX.  The
             # aux loss goes to training's loss, summed over the layers.
+            # Under a logical-axis binding the experts run across the ranks.
             cf = float(cfg.num_experts) / cfg.num_experts_per_tok if decode else None
-            y, aux = moe_ffn(p["ffn"], x2, cfg, capacity_factor=cf)
+            impl = moe_ffn_sharded if current_binding() is not None else moe_ffn
+            y, aux = impl(p["ffn"], x2, cfg, capacity_factor=cf)
         else:
             y = mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
         h = h + y

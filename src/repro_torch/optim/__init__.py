@@ -30,6 +30,7 @@ from typing import Any, Callable, List, Tuple
 import torch
 
 from ..convert import flat_tensors
+from ..distrib.sharding import P, map_specs
 
 PyTree = Any
 
@@ -241,3 +242,47 @@ def make_optimizer(cfg: OptimizerConfig):
     if cfg.name == "adafactor":
         return adafactor_init, lambda g, s, p: adafactor_update(cfg, g, s, p)
     raise ValueError(cfg.name)
+
+
+def zero2_specs(param_specs: PyTree, params_shapes: PyTree, batch_axes,
+                batch_size: int):
+    """ZeRO-2 optimizer-state specs: take the parameter's (TP-only) spec and
+    shard its first free, divisible dimension over the batch axes — the
+    optimizer state is 2-D sharded even though the weights are TP-only.
+    ``params_shapes``: the parameter tree (e.g. ``Model.param_shapes()``)."""
+    def per(spec, shape):
+        dims = tuple(shape.shape)
+        spec = list(spec) + [None] * (len(dims) - len(spec))
+        for i, (ax, dim) in enumerate(zip(spec, dims)):
+            if ax is None and dim % batch_size == 0 and dim > 1:
+                spec[i] = batch_axes
+                break
+        return P(*spec)
+
+    return map_specs(per, param_specs, params_shapes)
+
+
+def opt_state_specs(opt_name: str, param_specs: PyTree, params_shapes: PyTree,
+                    *, zero2=None):
+    """Derive optimizer-state PartitionSpecs from the parameter specs.
+
+    ``zero2=(batch_axes, batch_size)`` re-shards m/v over the batch axes
+    (the weights stay TP-only; see Rules.weight_fsdp)."""
+    if zero2 is not None:
+        param_specs = zero2_specs(param_specs, params_shapes, *zero2)
+    if opt_name == "adamw":
+        return {"m": param_specs, "v": param_specs, "step": P()}
+    if opt_name == "adafactor":
+        def per(spec, shape):
+            if len(shape.shape) >= 2:
+                return {
+                    "vr": P(*tuple(spec)[:-1]),
+                    "vc": P(*(tuple(spec)[:-2] + (tuple(spec)[-1],))),
+                }
+            return {"v": spec}
+
+        return {
+            "v": map_specs(per, param_specs, params_shapes),
+            "step": P(),
+        }
+    raise ValueError(opt_name)

@@ -82,7 +82,7 @@ class CheckpointWriter:
                 if item is None:
                     return
                 self.written.append(_write(self.store, self.root, *item))
-            except Exception as e:  # reported by drain(); the loop keeps going
+            except Exception as e:  # broad-ok: kept here and re-raised by drain(); the loop keeps going
                 self._error = e
             finally:
                 self._q.task_done()

@@ -70,11 +70,20 @@ def _bad_imports(path: pathlib.Path):
     return bad
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def test_no_jax_or_repro_imports_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     assert len(files) > 40
+    assert len(EXAMPLES) == 3
     bad = [b for f in files for b in _bad_imports(f)]
     assert not bad, bad
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    assert _bad_imports(ROOT / "chip_smoke.py") == []
+    assert "import repro\n" not in (ROOT / "chip_smoke.py").read_text()
 
 
 # modules the port carries as copies of the JAX package's numpy-only ones
@@ -95,6 +104,37 @@ ALLOWED_EXTRA = {
         "            device=self._device,",
     ],
 }
+
+
+# functions of the distribution layer the port carries verbatim (docstrings
+# and the port's late imports aside): module, qualified name
+VERBATIM = [
+    ("distrib/sharding.py", "Rules.model_if"),
+    ("distrib/sharding.py", "Rules.batch_if"),
+    ("distrib/sharding.py", "Rules.layer_specs"),
+    ("distrib/sharding.py", "Rules.param_specs"),
+    ("distrib/sharding.py", "Rules.batch_specs"),
+    ("distrib/sharding.py", "Rules.cache_specs"),
+    ("distrib/act.py", "current_binding"),
+    ("distrib/act.py", "default_rules"),
+]
+
+
+def _function_body(path: pathlib.Path, qualname: str) -> str:
+    tree = ast.parse(path.read_text())
+    node = tree
+    for part in qualname.split("."):
+        node = next(n for n in ast.iter_child_nodes(node)
+                    if isinstance(n, (ast.ClassDef, ast.FunctionDef)) and n.name == part)
+    body = [b for b in node.body
+            if not isinstance(b, (ast.Import, ast.ImportFrom))
+            and not (isinstance(b, ast.Expr) and isinstance(b.value, ast.Constant))]
+    return "\n".join(ast.unparse(b) for b in body)
+
+
+@pytest.mark.parametrize("rel,qualname", VERBATIM, ids=[f"{r}:{q}" for r, q in VERBATIM])
+def test_verbatim_function_has_not_drifted(rel, qualname):
+    assert _function_body(PORT / rel, qualname) == _function_body(JAXPKG / rel, qualname)
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -124,6 +164,25 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init(0)
     assert Worker(str(tmp_path / "c"), device="cpu").device.type == "cpu"
+
+
+def test_replay_cli_needs_a_gpu_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    from repro_torch.launch import replay
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            replay.main(argv + ["--root", str(tmp_path / "r"), "--duration", "0.1"])
+
+
+@pytest.mark.parametrize("example", [p.name for p in EXAMPLES])
+def test_example_needs_a_gpu_unless_asked_for_the_cpu(example):
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, str(ROOT / "examples" / example)], capture_output=True,
+                       text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stdout + r.stderr
 
 
 def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):

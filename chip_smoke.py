@@ -156,13 +156,23 @@ Phases, each of which passes or makes the script exit non-zero:
    more step profiled (device busy time, idle share, the kernels that
    hold it, each SSD kernel's launches and time: the backward's five CUDA
    kernels once per mamba layer);
-14. the ``repro_torch.launch.serve`` entry point: the cluster on threads.
+14. the ``repro_torch.launch.serve`` entry point: the cluster on threads;
+15. the dry run held to the card: stablelm-3b (2 layers at full width)
+   train b 4 x S 1024 with AdamW and mamba2-780m (whole) prefill b 1 x S
+   4096, each built by ``launch.specs.build_cell`` on a (1, 1) mesh,
+   traced on meta under ``opcost`` and then run with real tensors from a
+   seed: the kernel calls the trace booked must equal the launches the
+   counters read, kernel by kernel; the median of 5 steps beside the
+   trace's ``t_compute``, ``t_memory`` and the MFU; one profiled step's
+   busy ms beside the booked kernels' share; then
+   ``python -m repro_torch.launch.dryrun`` on olmoe-1b-7b ``train_4k``,
+   both production meshes, its summary lines printed.
 
 Then the ``{"kernels": [...]}`` summary (each kernel with its launches on
 the path named, and on every path), the ``nvidia-smi`` line, and last the
 ``{"ok": true, "device": ...}`` line.
 
-About 9.5 minutes on one H100, the kernels' build included.
+About 10.5 minutes on one H100, the kernels' build included.
 
 It imports nothing of JAX and nothing of the JAX package.  Without a GPU,
 or without the repository around it, it exits non-zero and prints no result.
@@ -438,6 +448,18 @@ def device_patch_tail_case(torch, gen):
           "shape": list(base.shape), "chunks": n, "bit_exact": True})
 
 
+def _allowed(torch, S, Sk, causal, window, prefix_len):
+    """The (S, Sk) boolean mask of the allowed (query, key) pairs, on the card."""
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(Sk, device="cuda")[None, :]
+    allowed = torch.ones((S, Sk), dtype=torch.bool, device="cuda")
+    if causal:
+        allowed &= (kp <= qp) | (kp < prefix_len)
+    if window > 0:
+        allowed &= qp - kp < window
+    return allowed
+
+
 def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None, causal=True,
                window=0, softcap=0.0, prefix_len=0, quick=False):
     """The kernel against its plain version; ``Sk`` keys (S unless given);
@@ -445,6 +467,7 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None, cau
     scores are GBs at prefill lengths)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.kernel import fwd_cost
 
     dev = torch.device("cuda")
     Sk = S if Sk is None else Sk
@@ -468,16 +491,9 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None, cau
     reps = dict(reps=10, per_graph=2) if quick else {}
     kernel_ms = device_ms(torch, [lambda: flash_attention(qt, kt, vt, **kw)])
     plain_ms = device_ms(torch, [lambda: attention_ref(qt, kt, vt, **kw)], **reps)
-    qp = torch.arange(S, device=dev)[:, None]
-    kp = torch.arange(Sk, device=dev)[None, :]
-    allowed = torch.ones((S, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        allowed &= (kp <= qp) | (kp < prefix_len)
-    if window > 0:
-        allowed &= qp - kp < window
-    pairs = int(allowed.sum())
-    ops = 4.0 * b * nh * pairs * hd
-    nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+    # the bound: the formula the dry run books (kernel.fwd_cost)
+    ops, nbytes = fwd_cost(b, nh, nkv, S, Sk, hd, q.element_size(), causal=causal,
+                           window=window, prefix_len=prefix_len)
     peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
     t_ops = ops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -487,7 +503,8 @@ def flash_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None, cau
         ke, ve = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
         # no mask where SDPA's own causal or full attention is the same
         plain_causal = causal and prefix_len == 0 and Sk == S
-        mask = None if window == 0 and (plain_causal or not causal) else allowed
+        mask = (None if window == 0 and (plain_causal or not causal)
+                else _allowed(torch, S, Sk, causal, window, prefix_len))
         library_ms = device_ms(torch, [lambda: F.scaled_dot_product_attention(
             qt, ke, ve, attn_mask=mask, is_causal=mask is None and causal, scale=scale)],
             **reps)
@@ -511,7 +528,7 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, quick=Fa
     """The kernel against its plain version; ``quick``: fewer replays of the
     plain version (a Python loop over many chunks)."""
     from repro_torch.kernels.ssd import ssd_ref, ssd_scan
-    from repro_torch.kernels.ssd.kernel import launch_plan
+    from repro_torch.kernels.ssd.kernel import launch_plan, scan_cost
 
     dev = torch.device("cuda")
     # x, B, C as the mixer hands them over: strided views into one xBC
@@ -541,15 +558,9 @@ def ssd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, quick=Fa
     plain_ms = device_ms(torch, [lambda: ssd_ref(*args, chunk=chunk)], **reps)
     c = min(chunk, l)
     plan = launch_plan(dtype, hd, ds, c, batch=b, heads=nh, seq=l)
-    # what the function needs: the causal half of C.B^T once per (batch,
-    # chunk), as every head shares B and C; per (batch, head, chunk) the
-    # causal half of the scores x dt.x product, and the C.state and state
-    # update products.  (The kernel recomputes C.B^T for every head.)
-    ops = (float(b * (l // c)) * c * (c + 1) * ds
-           + float(b * nh * (l // c)) * (c * (c + 1) * hd + 4 * c * hd * ds))
-    e = x.element_size()
-    nbytes = (2 * b * l * d_in * e + 2 * b * l * ds * e + 4 * b * l * nh
-              + 2 * 4 * nh + 4 * b * nh * hd * ds)
+    # what the function needs: the formula the dry run books
+    # (kernel.scan_cost; the kernel recomputes C.B^T for every head)
+    ops, nbytes = scan_cost(b, l, nh, hd, ds, chunk, x.element_size())
     # the float32 path runs 3xTF32 on the tensor cores
     peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
     t_ops = ops / peak * 1e3
@@ -2213,8 +2224,9 @@ def phase_faults(ctx, torch, rt):
 
 def _profile_call(torch, fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device time of its
-    kernels (one stream, so their sum is the busy time), their number, and
-    the kernels that hold most of it; ``{}`` where the trace shows no device
+    kernels (one stream, so their sum is the busy time), their number, the
+    kernels that hold most of it, and each kernel's launches and
+    microseconds (``by_name``); ``{}`` where the trace shows no device
     time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2233,7 +2245,8 @@ def _profile_call(torch, fn) -> dict:
     return {"device_busy_ms": sum(us for _, us in by_name.values()) / 1e3,
             "kernels": sum(n for n, _ in by_name.values()),
             "top_kernels": [{"name": k[:70], "launches": n, "ms": us / 1e3}
-                            for k, (n, us) in top]}
+                            for k, (n, us) in top],
+            "by_name": by_name}
 
 
 def phase_distrib(ctx, torch, rt):
@@ -2393,6 +2406,7 @@ def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_bwd_ref, attention_ref,
                                                      flash_attention, flash_attention_bwd)
+    from repro_torch.kernels.flash_attention.kernel import bwd_cost as flash_bwd_cost
     from repro_torch.kernels.flash_attention.kernel import bwd_launch_plan, bwd_occupancy
 
     dev = torch.device("cuda")
@@ -2442,18 +2456,10 @@ def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
         if ctl[name] <= rel:
             fail(f"flash_attention_bwd {label}: control '{name}' passed ({ctl[name]})")
     # the bound: 5 products of the allowed pairs x hd (2 flops each) against
-    # the forward's 2; each input read once, each gradient written once
-    qp = torch.arange(S, device=dev)[:, None]
-    kp = torch.arange(Sk, device=dev)[None, :]
-    allowed = torch.ones((S, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        allowed &= (kp <= qp) | (kp < prefix_len)
-    if window > 0:
-        allowed &= qp - kp < window
-    pairs = int(allowed.sum())
-    ops = 10.0 * b * nh * pairs * hd
-    nbytes = (3 * q.numel() + 2 * k.numel() + 2 * v.numel() + do.numel()) * q.element_size() \
-        + 4 * lse.numel()
+    # the forward's 2; each input read once, each gradient written once (the
+    # formula the dry run books, kernel.bwd_cost)
+    ops, nbytes = flash_bwd_cost(b, nh, nkv, S, Sk, hd, q.element_size(), causal=causal,
+                                 window=window, prefix_len=prefix_len)
     peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     kernel_ms = device_ms(torch, [lambda: flash_attention_bwd(qt, kt, vt, o, dot_c, lse, **kw)],
@@ -2468,7 +2474,8 @@ def flash_bwd_case(ctx, torch, gen, label, b, nh, nkv, S, hd, dtype, *, Sk=None,
         ql, ke, ve = (x.detach().clone().requires_grad_(True) for x in
                       (qt, kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)))
         plain_causal = causal and prefix_len == 0 and Sk == S
-        mask = None if window == 0 and (plain_causal or not causal) else allowed
+        mask = (None if window == 0 and (plain_causal or not causal)
+                else _allowed(torch, S, Sk, causal, window, prefix_len))
 
         def sdpa():
             return F.scaled_dot_product_attention(ql, ke, ve, attn_mask=mask,
@@ -2533,13 +2540,7 @@ def _bwd_without_softcap_factor(torch, q, k, v, o, do, lse, *, scale, causal, wi
     f = torch.float32
     qr, g, orr = (x.reshape(b, nkv, rep, S, hd).to(f) for x in (q, do, o))
     s = softcap * torch.tanh(torch.einsum("bgrqd,bgkd->bgrqk", qr, k.to(f)) * scale / softcap)
-    qp = torch.arange(S, device=q.device)[:, None]
-    kp = torch.arange(Sk, device=q.device)[None, :]
-    allowed = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        allowed &= (kp <= qp) | (kp < prefix_len)
-    if window > 0:
-        allowed &= qp - kp < window
+    allowed = _allowed(torch, S, Sk, causal, window, prefix_len)
     p = torch.where(allowed, torch.exp(s - lse.reshape(b, nkv, rep, S, 1)), 0.0)
     ds = p * (torch.einsum("bgrqd,bgkd->bgrqk", g, v.to(f)) - (g * orr).sum(-1, keepdim=True))
     dq = torch.einsum("bgrqk,bgkd->bgrqd", ds, k.to(f)) * scale
@@ -2895,6 +2896,7 @@ def ssd_bwd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, cont
     kernel's registers and spills, scratch bytes and the tensor-core
     operations a call issues beside the bound's."""
     from repro_torch.kernels.ssd import ssd_bwd_ref, ssd_ref, ssd_scan_bwd
+    from repro_torch.kernels.ssd.kernel import bwd_cost as ssd_bwd_cost
     from repro_torch.kernels.ssd.kernel import (bwd_launch_plan, bwd_occupancy,
                                                 ssd_scan_for_grad)
 
@@ -2946,14 +2948,10 @@ def ssd_bwd_case(ctx, torch, gen, label, b, l, nh, hd, ds, chunk, dtype, *, cont
     # the bound: the causal half of C.B^T once per (batch, chunk); per
     # (batch, chunk, head) the causal half of dy.x^T, M^T dy, N^T C and N B
     # and four (c x hd x ds) state products; each input read once (x, dy, B,
-    # C, dt, A, D, the state's gradient), each gradient written once
+    # C, dt, A, D, the state's gradient), each gradient written once (the
+    # formula the dry run books, kernel.bwd_cost)
     c = min(chunk, l)
-    pairs = c * (c + 1) / 2
-    ops = (float(b * (l // c)) * 2 * pairs * ds
-           + float(b * (l // c) * nh) * (2 * pairs * (2 * hd + 2 * ds) + 8 * c * hd * ds))
-    e = x.element_size()
-    nbytes = (3 * b * l * d_in * e + 4 * b * l * ds * e + 2 * 4 * b * l * nh + 4 * 4 * nh
-              + 4 * b * nh * hd * ds)
+    ops, nbytes = ssd_bwd_cost(b, l, nh, hd, ds, chunk, x.element_size())
     peak = PEAK_OPS_3XTF32 if dname == "float32" else PEAK_OPS[dname]
     t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     plan = bwd_launch_plan(dtype, hd, ds, c, batch=b, heads=nh, seq=l)
@@ -3127,6 +3125,138 @@ def _ssm_training(ctx, torch, rt):
                    "jamba-v0.1-52b train l=1024")
 
 
+# ------------------------------------------------------------------ phase 15
+
+def _real_args(torch, cell, seed):
+    """The cell's arguments as tensors on the card: weights from ``seed``
+    (``Model.init``), optimizer state from them, token ids below the
+    vocabulary and N(0, 1) embeddings in the meta tensors' shapes."""
+    from repro_torch.launch.specs import opt_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = cell.cfg
+    params = build_model(cfg).init(seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(t):
+        if t.dtype in (torch.int32, torch.int64):
+            return torch.randint(0, cfg.vocab_size, t.shape, generator=gen, device="cuda",
+                                 dtype=t.dtype)
+        return torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+
+    batch = {k: fill(v) for k, v in cell.args[1].items()}
+    if cell.shape.kind == "train":
+        return {"params": params, "opt": make_optimizer(opt_for(cfg))[0](params)}, batch
+    return params, batch
+
+
+def _dryrun_cell(ctx, torch, label, cfg, shape, seed):
+    """One cell of the dry run against the card: traced on meta under
+    ``opcost``, then the same step with real tensors, its launches held to
+    the booked calls kernel by kernel, timed and profiled."""
+    from repro_torch import opcost
+    from repro_torch import roofline as rl
+    from repro_torch.distrib.sharding import AbstractMesh
+    from repro_torch.launch.specs import build_cell
+
+    cell = build_cell(cfg, shape, AbstractMesh(("data", "model"), (1, 1)))
+    t0 = time.perf_counter()
+    _, totals, _ = opcost.trace(cell.fn, *cell.args)
+    t_trace = time.perf_counter() - t0
+    if set(totals.devices) != {"meta"}:
+        fail(f"dryrun {label}: the trace wrote outside meta (device: first op) {totals.devices}")
+    args = _real_args(torch, cell, seed)
+    torch.cuda.synchronize()
+    _reset()                                        # main path starts here
+    out = cell.fn(*args)
+    torch.cuda.synchronize()
+    counts = _read()                                # main path ends here
+    ctx.paths[f"dryrun {label}"] = counts
+    booked = totals.kernel_calls
+    for k in set(booked) | {k for k, v in counts.items() if v}:
+        if booked.get(k, 0) != counts[k]:
+            fail(f"dryrun {label}: booked {booked} kernel calls, the card launched {counts}")
+    if shape.kind == "train":
+        _, metrics = out
+        vals = [float(metrics["loss"]), float(metrics["grad_norm"])]
+    else:
+        logits, cache = out
+        vals = [float(logits.float().abs().max())] + [
+            float(t.float().abs().max()) for c in cache.values() for t in c.values()]
+        if tuple(logits.shape) != (shape.global_batch, 1, cfg.vocab_size):
+            fail(f"dryrun {label}: logits {tuple(logits.shape)}")
+    if not all(v == v and abs(v) != float("inf") for v in vals):
+        fail(f"dryrun {label}: non-finite outputs {vals}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cell.fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = statistics.median(times) * 1e3
+    t_compute = totals.flops / rl.PEAK_FLOPS[cfg.dtype] * 1e3
+    t_memory = totals.bytes / rl.HBM_BW * 1e3
+    mflops = rl.model_flops(cfg, shape)
+    prof = _profile_call(torch, lambda: cell.fn(*args))
+    ours = {k: v for k, v in prof.get("by_name", {}).items()
+            if re.search(r"\b(flash_|ssd_)\w+", k)}
+    ours_ms = sum(us for _, us in ours.values()) / 1e3
+    busy = prof.get("device_busy_ms")
+    emit({"phase": "dryrun", "cell": label, "trace_s": t_trace,
+          "booked_kernel_calls": booked, "launches": counts,
+          "flops": totals.flops, "bytes": totals.bytes, "model_flops": mflops,
+          "t_compute_ms": t_compute, "t_memory_ms": t_memory,
+          "roofline_bound_ms": max(t_compute, t_memory),
+          "step_ms_median_of_5": step_ms, "step_ms": [t * 1e3 for t in times],
+          "mfu": mflops / (step_ms / 1e3 * rl.PEAK_FLOPS["bfloat16"]),
+          "booked_kernel_flops_share": sum(totals.kernel_flops.values()) / totals.flops,
+          "booked_kernel_bytes_share": sum(totals.kernel_bytes.values()) / totals.bytes,
+          "device_busy_ms": busy if busy is not None else "not measured",
+          "kernels_busy_ms": ours_ms if busy is not None else "not measured",
+          "kernels_busy_share": ours_ms / busy if busy else "not measured",
+          "top_kernels": prof.get("top_kernels", "not measured"),
+          "outputs": vals[:4]})
+    del out, args
+    _free(torch)
+
+
+def phase_dryrun(ctx, torch, rt):
+    """The dry run and cost model held to the card: stablelm-3b (2 layers)
+    train b 4 x S 1024 and mamba2-780m (whole) prefill b 1 x S 4096, each
+    traced on meta and run on the card; then the dry-run CLI on olmoe-1b-7b
+    train_4k, both production meshes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import ShapeConfig
+
+    full = get_config("stablelm-3b")
+    _dryrun_cell(ctx, torch, "stablelm-3b train", dataclasses.replace(full, num_layers=2),
+                 ShapeConfig("train_1k", 1024, 4, "train"), seed=41)
+    _dryrun_cell(ctx, torch, "mamba2-780m prefill", get_config("mamba2-780m"),
+                 ShapeConfig("prefill_4k", 4096, 1, "prefill"), seed=43)
+    out = os.path.join(rt, "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                        "olmoe-1b-7b", "--shape", "train_4k", "--both-meshes", "--out", out],
+                       capture_output=True, text=True, env=env, cwd=HERE, timeout=300)
+    if r.returncode != 0:
+        fail(f"the dry-run CLI failed: {r.stderr[-2000:]}")
+    for line in r.stdout.splitlines():
+        if line.startswith("[dryrun]"):
+            print(line, flush=True)
+    files = sorted(os.listdir(out))
+    for f in files:
+        with open(os.path.join(out, f)) as fh:
+            d = json.load(fh)
+        if set(d["opcost"]["devices"]) != {"meta"} or d["roofline"]["flops_per_device"] <= 0:
+            fail(f"dry-run artifact {f}: {d['opcost']['devices']}, "
+                 f"{d['roofline']['flops_per_device']} FLOPs")
+    emit({"phase": "dryrun", "cli_s": time.perf_counter() - t0, "artifacts": files})
+    if len(files) != 2:
+        fail(f"the dry-run CLI wrote {files}")
+
+
 # ------------------------------------------------------------------- summary
 
 KERNELS = {  # source, the TPU kernel it replaces, the path its launches are read on,
@@ -3175,7 +3305,7 @@ PHASES = (("env", phase_env), ("build", phase_build), ("kernels", phase_kernels)
           ("olmoe", phase_olmoe), ("decode", phase_decode), ("encdec", phase_encdec),
           ("grok", phase_grok), ("faults", phase_faults), ("distrib", phase_distrib),
           ("train", phase_train),
-          ("serve", phase_serve))
+          ("serve", phase_serve), ("dryrun", phase_dryrun))
 
 
 def main() -> None:

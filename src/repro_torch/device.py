@@ -10,7 +10,8 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the GPU; the CPU only when asked for by name.
+    """``None`` means the GPU; the CPU, or ``meta`` (shapes without data:
+    the dry run), only when asked for by name.
 
     There is no silent fallback: a CUDA request on a host without a usable
     GPU raises, so a run that was meant for the card never quietly measures
@@ -22,6 +23,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

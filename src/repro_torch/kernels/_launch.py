@@ -1,15 +1,25 @@
 """What every kernel wrapper of the port shares: a thread-safe launch
-counter, the check of the C launcher's return code and the card's SM
-count."""
+counter, the check of the C launcher's return code, the card's SM count,
+and the meta route of the dry run.
+
+A wrapper sees one of three device kinds: the CPU (the plain version),
+CUDA (the kernel) and ``meta`` (the dry run, ``launch/dryrun.py``).  On
+meta, flash attention and the SSD scan take the CUDA branch, allocate their
+outputs on meta, book one call of the kernel (its operations and bytes) with
+every cost ledger open in the context (``opcost.CostMode``), and launch
+nothing: the launch counters stay as they are."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict
+from contextvars import ContextVar
+from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
 _sms: Dict[int, int] = {}
+_LEDGERS: ContextVar[Tuple[Any, ...]] = ContextVar("repro_torch_cost_ledgers", default=())
 
 
 class LaunchCounter:
@@ -47,20 +57,47 @@ def require_cuda(kernel: str, *tensors: torch.Tensor) -> torch.device:
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(
-                f"{kernel}: every tensor must lie on one CUDA device, got "
+                f"{kernel}: every tensor must lie on one CUDA device, got devices "
                 f"{[str(x.device) for x in tensors]}")
     return dev
 
 
+def launch_device(kernel: str, *tensors: torch.Tensor) -> torch.device:
+    """The device a kernel with a meta route runs on: one CUDA device for
+    all tensors, or ``meta`` for all (the dry run); raises otherwise."""
+    if all(t.device.type == "meta" for t in tensors):
+        return tensors[0].device
+    return require_cuda(kernel, *tensors)
+
+
 def all_on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain-version route);
-    False when all lie on CUDA; raises on a mix."""
+    False when all lie on CUDA or all on meta (the kernel's route); raises
+    on a mix."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return True
-    if kinds == {"cuda"}:
+    if kinds in ({"cuda"}, {"meta"}):
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {sorted(kinds)}")
+
+
+@contextlib.contextmanager
+def ledger_open(ledger: Any) -> Iterator[Any]:
+    """While open, every booking of the meta route goes to
+    ``ledger.book_kernel(kernel, ops, nbytes)``."""
+    token = _LEDGERS.set(_LEDGERS.get() + (ledger,))
+    try:
+        yield ledger
+    finally:
+        _LEDGERS.reset(token)
+
+
+def book(kernel: str, ops: float, nbytes: int) -> None:
+    """One call of ``kernel`` on the meta route: its operations and the
+    bytes it moves, to every open ledger (none: the call is not counted)."""
+    for ledger in _LEDGERS.get():
+        ledger.book_kernel(kernel, ops, nbytes)
 
 
 def sm_count(dev: torch.device) -> int:

@@ -29,7 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ... import _build
-from .._launch import LaunchCounter, check_launch, require_cuda, sm_count
+from .._launch import LaunchCounter, book, check_launch, launch_device, sm_count
 
 #: launches of the CUDA kernel, counted where it launches
 launches = LaunchCounter()
@@ -130,6 +130,48 @@ def tile_needs_mask(k0: int, q0: int, q_last: int, Sk: int, tile_k: int, *,
             or (window > 0 and q_last - k0 >= window))
 
 
+def allowed_pairs(S: int, Sk: int, *, causal: bool, window: int, prefix_len: int) -> int:
+    """The (query, key) pairs the mask allows, in closed form (no S x Sk
+    mask): query q sees keys from ``max(q - window + 1, 0)`` (a window) to
+    ``max(q, prefix_len - 1)`` (causal; the prefix is seen by every query)
+    or to ``Sk - 1``.  Each count is linear in q between the kinks listed
+    below, so every stretch sums as an arithmetic series."""
+    def keys(q: int) -> int:
+        lo = max(q - window + 1, 0) if window > 0 else 0
+        hi = min(max(q, prefix_len - 1), Sk - 1) if causal else Sk - 1
+        return max(hi - lo + 1, 0)
+
+    kinks = {0, S}
+    for k in (prefix_len - 1, window - 1, Sk - 1, Sk + window - 1):
+        kinks.update((k, k + 1))
+    edges = sorted(e for e in kinks if 0 <= e <= S)
+    total = 0
+    for a, e in zip(edges, edges[1:]):
+        total += (keys(a) + keys(e - 1)) * (e - a) // 2
+    return total
+
+
+def fwd_cost(b: int, nh: int, nkv: int, S: int, Sk: int, hd: int, itemsize: int, *,
+             causal: bool, window: int, prefix_len: int) -> Tuple[float, int]:
+    """(operations, bytes) the forward needs: two products over the allowed
+    pairs (2 flops a pair a head dim each); q, k, v read and o written
+    once.  The bound's formula, and what the meta route books."""
+    pairs = allowed_pairs(S, Sk, causal=causal, window=window, prefix_len=prefix_len)
+    q_elems, kv_elems = b * nh * S * hd, b * nkv * Sk * hd
+    return 4.0 * b * nh * pairs * hd, (q_elems + 2 * kv_elems + q_elems) * itemsize
+
+
+def bwd_cost(b: int, nh: int, nkv: int, S: int, Sk: int, hd: int, itemsize: int, *,
+             causal: bool, window: int, prefix_len: int) -> Tuple[float, int]:
+    """(operations, bytes) the backward needs: five products of the allowed
+    pairs x hd (2 flops each); q, k, v, o, dO and lse read once, dq, dk and
+    dv written once."""
+    pairs = allowed_pairs(S, Sk, causal=causal, window=window, prefix_len=prefix_len)
+    q_elems, kv_elems = b * nh * S * hd, b * nkv * Sk * hd
+    return (10.0 * b * nh * pairs * hd,
+            (3 * q_elems + 4 * kv_elems + q_elems) * itemsize + 4 * b * nh * S)
+
+
 def alignment_problem(name: str, data_ptr: int, shape: Sequence[int],
                       strides: Sequence[int], itemsize: int) -> Optional[str]:
     """Why TMA cannot read a (b, heads, seq, hd) tensor, or None: the head
@@ -178,7 +220,7 @@ def flash_attention(
     """Launch the CUDA kernel on CUDA tensors; returns (b, nh, S, hd), and
     with ``return_lse`` also each row's log-sum-exp (b, nh, S) float32 for
     the backward (``LSE_EMPTY`` where a row has no allowed key)."""
-    dev = require_cuda("flash_attention", q, k, v)
+    dev = launch_device("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q (b, nh, S, hd), k / v (b, nkv, Sk, hd)")
     b, nh, S, hd = q.shape
@@ -195,13 +237,18 @@ def flash_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs a unit-stride head dim")
+    out = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    lse = torch.empty((b, nh, S), dtype=torch.float32, device=dev) if return_lse else None
+    if dev.type == "meta":
+        book("flash_attention", *fwd_cost(b, nh, nkv, S, Sk, hd, q.element_size(),
+                                          causal=causal, window=window,
+                                          prefix_len=prefix_len))
+        return (out, lse) if return_lse else out
     plan = launch_plan(q.dtype, hd, batch=b, heads=nh, seq=S)
     for name, t in (("q", q), ("k", k), ("v", v)):
         why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
         if why:
             raise ValueError(f"flash_attention: {why}")
-    out = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
-    lse = torch.empty((b, nh, S), dtype=torch.float32, device=dev) if return_lse else None
     strides = (ctypes.c_int64 * 12)(
         *_tma_strides(q, hd), *_tma_strides(k, hd), *_tma_strides(v, hd),
         *out.stride()[:3])
@@ -442,7 +489,7 @@ def flash_attention_bwd(
     dtype.  q, k, v and dO are read by TMA and o by 16-byte loads: any
     (batch, head, seq) strides that are multiples of 16 bytes with a
     unit-stride head dim."""
-    dev = require_cuda("flash_attention_bwd", q, k, v, o, do, lse)
+    dev = launch_device("flash_attention_bwd", q, k, v, o, do, lse)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected q (b, nh, S, hd), k / v (b, nkv, Sk, hd)")
     b, nh, S, hd = q.shape
@@ -462,15 +509,20 @@ def flash_attention_bwd(
     if code is None or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise TypeError(f"q, k, v, o, dO must share float32 or bfloat16, got "
                         f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
+    dq = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
+    if dev.type == "meta":
+        book("flash_attention_bwd", *bwd_cost(b, nh, nkv, S, Sk, hd, q.element_size(),
+                                              causal=causal, window=window,
+                                              prefix_len=prefix_len))
+        return dq, dk, dv
     plan = bwd_launch_plan(q.dtype, hd, batch=b, heads=nh, kv_heads=nkv, seq=S, kv_seq=Sk,
                            sms=sm_count(dev))
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("dO", do)):
         why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
         if why:
             raise ValueError(f"flash_attention_bwd: {why}")
-    dq = torch.empty((b, S, nh, hd), dtype=q.dtype, device=dev).transpose(1, 2)
-    dk = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
-    dv = torch.empty((b, Sk, nkv, hd), dtype=q.dtype, device=dev).transpose(1, 2)
     s_pad = plan.s_pad(S)
     ld = torch.empty((b, nh, s_pad, 2), dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)

@@ -34,7 +34,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ... import _build
-from .._launch import LaunchCounter, check_launch, require_cuda
+from .._launch import LaunchCounter, book, check_launch, launch_device
 from .ref import check_length
 
 #: launches of the op, counted where it launches its kernels
@@ -146,6 +146,38 @@ def launch_plan(dtype: torch.dtype, head_dim: int, state: int, chunk: int, *,
                    grid_scan=(batch * chunks, heads, row_tiles))
 
 
+def scan_cost(b: int, l: int, nh: int, hd: int, ds: int, chunk: int,
+              itemsize: int) -> Tuple[float, int]:
+    """(operations, bytes) the scan needs: the causal half of C.B^T once
+    per (batch, chunk), as every head shares B and C; per (batch, head,
+    chunk) the causal half of the scores x dt.x product, and the C.state
+    and state update products (the kernel recomputes C.B^T for every head);
+    x, B, C, dt, A, D read and y and the final state written once.  The
+    bound's formula, and what the meta route books."""
+    c = min(chunk, l)
+    ops = (float(b * (l // c)) * c * (c + 1) * ds
+           + float(b * nh * (l // c)) * (c * (c + 1) * hd + 4 * c * hd * ds))
+    d_in, e = nh * hd, itemsize
+    return ops, (2 * b * l * d_in * e + 2 * b * l * ds * e + 4 * b * l * nh
+                 + 2 * 4 * nh + 4 * b * nh * hd * ds)
+
+
+def bwd_cost(b: int, l: int, nh: int, hd: int, ds: int, chunk: int,
+             itemsize: int) -> Tuple[float, int]:
+    """(operations, bytes) the backward needs: the causal half of C.B^T once
+    per (batch, chunk); per (batch, chunk, head) the causal half of dy.x^T,
+    M^T dy, N^T C and N B and four (c x hd x ds) state products; each input
+    read once (x, dy, B, C, dt, A, D, the state's gradient), each gradient
+    written once."""
+    c = min(chunk, l)
+    pairs = c * (c + 1) / 2
+    ops = (float(b * (l // c)) * 2 * pairs * ds
+           + float(b * (l // c) * nh) * (2 * pairs * (2 * hd + 2 * ds) + 8 * c * hd * ds))
+    d_in, e = nh * hd, itemsize
+    return ops, (3 * b * l * d_in * e + 4 * b * l * ds * e + 2 * 4 * b * l * nh + 4 * 4 * nh
+                 + 4 * b * nh * hd * ds)
+
+
 def alignment_problem(name: str, data_ptr: int, shape: Sequence[int],
                       strides: Sequence[int], itemsize: int) -> Optional[str]:
     """Why the 16-byte copies cannot read x (b, l, nh, hd) or B / C (b, l,
@@ -222,26 +254,29 @@ def ssd_scan_for_grad(
     the states entering each chunk as the chunk scan read them, a (b,
     chunks, nh, hd, ds) float32 buffer holding float32 states or, for
     bfloat16 inputs, their hi and lo bf16 planes (b, chunks, nh, 2, hd, ds)."""
-    dev = require_cuda("ssd_scan", x, dt, A, B, C, D)
+    dev = launch_device("ssd_scan", x, dt, A, B, C, D)
     _check(x, dt, A, B, C, D)
     b, l, nh, hd = x.shape
     ds = B.shape[2]
     chunk = check_length(l, chunk)
-    plan = launch_plan(x.dtype, hd, ds, chunk, batch=b, heads=nh, seq=l)
-    for name, t in (("x", x), ("B", B), ("C", C)):
-        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
-        if why:
-            raise ValueError(f"ssd_scan: {why}")
-    nc = plan.chunks
+    nc = l // chunk
     y = torch.empty((b, l, nh, hd), dtype=x.dtype, device=dev)
     state = torch.empty((b, nh, hd, ds), dtype=torch.float32, device=dev)
     # scratch: cs and v per chunk row; the chunk states and the states
     # entering each chunk (float32, or bf16 hi and lo planes).  Each its own
     # allocation: the backward keeps cs and s_in alive, not the rest
     cs = torch.empty((b, nc, nh, chunk), dtype=torch.float32, device=dev)
-    v = torch.empty_like(cs)
     states = torch.empty((b, nc, nh, hd, ds), dtype=torch.float32, device=dev)
     s_in = torch.empty_like(states)
+    if dev.type == "meta":
+        book("ssd_scan", *scan_cost(b, l, nh, hd, ds, chunk, x.element_size()))
+        return y, state, cs, s_in
+    plan = launch_plan(x.dtype, hd, ds, chunk, batch=b, heads=nh, seq=l)
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+        if why:
+            raise ValueError(f"ssd_scan: {why}")
+    v = torch.empty_like(cs)
     # float32: C.B^T per (batch x chunk, tile pair), 64 x 64
     cbt = (torch.empty((b * nc, plan.grid_cb[1], TILE * TILE), dtype=torch.float32,
                        device=dev) if plan.smem_cb else None)
@@ -458,13 +493,12 @@ def ssd_scan_bwd(
     one (b, l, nh hd + 2 ds) buffer, laid out as the mixer's xBC; ddt, dA and
     dD in float32."""
     extra = () if dstate is None else (dstate,)
-    dev = require_cuda("ssd_scan_bwd", x, dt, A, B, C, D, dy, cs, s_in, *extra)
+    dev = launch_device("ssd_scan_bwd", x, dt, A, B, C, D, dy, cs, s_in, *extra)
     _check(x, dt, A, B, C, D)
     b, l, nh, hd = x.shape
     ds = B.shape[2]
     chunk = check_length(l, chunk)
-    plan = bwd_launch_plan(x.dtype, hd, ds, chunk, batch=b, heads=nh, seq=l)
-    nc = plan.chunks
+    nc = l // chunk
     if dy.shape != x.shape or dy.dtype != x.dtype or not dy.is_contiguous():
         raise ValueError(f"dy must be contiguous {tuple(x.shape)} {x.dtype}, got "
                          f"{tuple(dy.shape)} {dy.dtype}")
@@ -474,10 +508,6 @@ def ssd_scan_bwd(
     for name, t, shape in (("cs", cs, (b, nc, nh, chunk)), ("s_in", s_in, (b, nc, nh, hd, ds))):
         if tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be the forward's contiguous float32 {shape}")
-    for name, t in (("x", x), ("B", B), ("C", C)):
-        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
-        if why:
-            raise ValueError(f"ssd_scan_bwd: {why}")
     d_in = nh * hd
     grads = torch.empty((b, l, d_in + 2 * ds), dtype=x.dtype, device=dev)
     dx = grads[..., :d_in].view(b, l, nh, hd)
@@ -485,6 +515,14 @@ def ssd_scan_bwd(
     ddt = torch.empty((b, l, nh), dtype=torch.float32, device=dev)
     dA = torch.empty((nh,), dtype=torch.float32, device=dev)
     dD = torch.empty_like(dA)
+    if dev.type == "meta":
+        book("ssd_scan_bwd", *bwd_cost(b, l, nh, hd, ds, chunk, x.element_size()))
+        return dx, ddt, dA, dB, dC, dD
+    plan = bwd_launch_plan(x.dtype, hd, ds, chunk, batch=b, heads=nh, seq=l)
+    for name, t in (("x", x), ("B", B), ("C", C)):
+        why = alignment_problem(name, t.data_ptr(), t.shape, t.stride(), t.element_size())
+        if why:
+            raise ValueError(f"ssd_scan_bwd: {why}")
     sizes = bwd_scratch(b, nc, nh, hd, ds, chunk, plan.groups, x.element_size())
     scratch = torch.empty((sum(sizes.values()),), dtype=torch.float32, device=dev)
     parts = dict(zip(sizes, scratch.split(list(sizes.values()))))

@@ -1,5 +1,7 @@
 """Public SSD scan: the CUDA kernels for CUDA tensors, the plain version for
-CPU tensors, and nothing else.
+CPU tensors, and nothing else.  Meta tensors (the dry run) take the CUDA
+branch, where the kernels book their calls instead of launching
+(``kernels/_launch.py``).
 
 On CUDA with gradients wanted (grad mode on and any input requiring grad)
 the forward and the hand-written backward run as one

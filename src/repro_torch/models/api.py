@@ -70,8 +70,8 @@ class Model:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         h = params["embed"]["table"][tokens.long()]
         if self.cfg.embed_scale:
-            h = h * torch.tensor(math.sqrt(self.cfg.d_model), dtype=h.dtype,
-                                 device=h.device)
+            h = h * torch.full((), math.sqrt(self.cfg.d_model), dtype=h.dtype,
+                               device=h.device)
         return shard(h, "batch", "seq", "embed")
 
     def _logits_head(self, params, h: torch.Tensor) -> torch.Tensor:
@@ -191,7 +191,7 @@ class Model:
         if dtype is None:
             dtype = cfg.dtype
         dt = torch_dtype(dtype) if isinstance(dtype, str) else dtype
-        dev = torch.device("meta") if device == "meta" else resolve_device(device)
+        dev = resolve_device(device)
 
         def zeros(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=dev)

@@ -59,8 +59,8 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     """positions (...,) -> cos/sin of shape (..., head_dim // 2)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=positions.device) / head_dim
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

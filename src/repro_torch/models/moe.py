@@ -27,13 +27,15 @@ Returns (y (b, s, D) in x's dtype, the load-balance aux loss
 
 ``moe_ffn_sharded`` is the distributed form under a logical-axis binding
 (``distrib.act``): rank-local code with explicit collectives where JAX
-has a ``shard_map``.
+has a ``shard_map``.  ``routed`` binds another form in its place (the dry
+run's global step, ``launch/specs.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Tuple
+from contextvars import ContextVar
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,6 +43,24 @@ import torch.distributed as dist
 from ..distrib.act import batch_shards, current_binding
 from ..distrib.sharding import mesh_shape
 from .layers import activation
+
+_ROUTE: ContextVar[Optional[Callable]] = ContextVar("repro_torch_moe_route", default=None)
+
+
+@contextlib.contextmanager
+def routed(fn: Callable) -> Iterator[None]:
+    """While open, a MoE layer under a binding runs ``fn`` (the signature of
+    ``moe_ffn_sharded``) in its place."""
+    token = _ROUTE.set(fn)
+    try:
+        yield
+    finally:
+        _ROUTE.reset(token)
+
+
+def bound_route() -> Optional[Callable]:
+    """The MoE FFN ``routed`` binds, or None."""
+    return _ROUTE.get()
 
 
 def _queue_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:

@@ -32,7 +32,7 @@ from .attention import decode_attention
 from .config import LayerKind, ModelConfig
 from ..distrib.act import current_binding, shard
 from .layers import apply_norm, apply_rope, mlp, softcap
-from .moe import moe_ffn, moe_ffn_sharded
+from .moe import bound_route, moe_ffn, moe_ffn_sharded
 from .ssm import mamba_mixer
 
 PyTree = Any
@@ -280,9 +280,14 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             ck, cv = cache["ck"], cache["cv"]
             attn = decode_attention(q, ck, cv, ck.shape[1] - 1, scale=_scale(cfg))
         else:
-            ck = torch.einsum("bld,dgk->blgk", cross_states, p["ck"])
-            cv = torch.einsum("bld,dgk->blgk", cross_states, p["cv"])
-            attn = flash_attention_op(q, ck, cv, scale=_scale(cfg), causal=False)
+            # under remat the encoder's output is float32: as JAX promotes,
+            # its keys and values are float32 and so is the attention, whose
+            # output takes q's dtype (no cast where the dtypes agree)
+            kv_dt = cross_states.dtype
+            ck = torch.einsum("bld,dgk->blgk", cross_states, p["ck"].to(kv_dt))
+            cv = torch.einsum("bld,dgk->blgk", cross_states, p["cv"].to(kv_dt))
+            attn = flash_attention_op(q.to(kv_dt), ck, cv, scale=_scale(cfg),
+                                      causal=False).to(q.dtype)
             if make_cache:
                 new_cache.update(ck=ck, cv=cv)
         h = h + torch.einsum("blhk,hkd->bld", attn, p["co"])
@@ -293,9 +298,12 @@ def apply_layer(cfg: ModelConfig, kind: LayerKind, p: PyTree, h: torch.Tensor, *
             # and decode agrees with the teacher-forced forward; the forward
             # and prefill keep the config's (they may drop), as in JAX.  The
             # aux loss goes to training's loss, summed over the layers.
-            # Under a logical-axis binding the experts run across the ranks.
+            # Under a logical-axis binding the experts run across the ranks,
+            # or by the form ``moe.routed`` binds.
             cf = float(cfg.num_experts) / cfg.num_experts_per_tok if decode else None
-            impl = moe_ffn_sharded if current_binding() is not None else moe_ffn
+            impl = moe_ffn
+            if current_binding() is not None:
+                impl = bound_route() or moe_ffn_sharded
             y, aux = impl(p["ffn"], x2, cfg, capacity_factor=cf)
         else:
             y = mlp(p["ffn"], x2, cfg.hidden_act, cfg.mlp_gated)
@@ -334,7 +342,8 @@ def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor,
     sequence, recomputes each macro-block in the backward
     (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the scan body);
     ``remat_group > 1`` (dividing ``n_repeat``) checkpoints groups of that
-    many checkpointed blocks, JAX's two-level remat."""
+    many checkpointed blocks, JAX's two-level remat.  The blocks draw no
+    random numbers, so the checkpoints keep no RNG state."""
     n_repeat = _first_leaf(blocks_params).shape[0]
     caches: Dict[str, Any] = {}
 
@@ -365,17 +374,17 @@ def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor,
         def group(g: int, hh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             a = torch.zeros((), dtype=torch.float32, device=hh.device)
             for r in range(g * remat_group, (g + 1) * remat_group):
-                hh, a_r = checkpoint(block, r, hh, use_reentrant=False)
+                hh, a_r = checkpoint(block, r, hh, use_reentrant=False, preserve_rng_state=False)
                 a = a + a_r
             return hh, a
 
         for g in range(n_repeat // remat_group):
-            h, a = checkpoint(group, g, h, use_reentrant=False)
+            h, a = checkpoint(group, g, h, use_reentrant=False, preserve_rng_state=False)
             aux = aux + a
         return h, None, aux
     for r in range(n_repeat):
         if recompute:
-            h, a = checkpoint(block, r, h, use_reentrant=False)
+            h, a = checkpoint(block, r, h, use_reentrant=False, preserve_rng_state=False)
         else:
             h, a = block(r, h)
         aux = aux + a
@@ -422,7 +431,8 @@ def chunked_cross_entropy(h: torch.Tensor, embed_table: torch.Tensor,
     for c0 in range(0, s, chunk):
         hc, lc = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_ce_chunk, hc, lc, W, final_softcap, use_reentrant=False)
+            nll, n = checkpoint(_ce_chunk, hc, lc, W, final_softcap, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             nll, n = _ce_chunk(hc, lc, W, final_softcap)
         tot = tot + nll

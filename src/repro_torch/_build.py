@@ -25,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable
 
+from .obs import LaunchCounter
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 SOURCES = ("snapshot_patch", "flash_attention", "flash_attention_bwd", "ssd_scan",
@@ -39,6 +41,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 #: per source: compiler output of the last build in this process (ptxas
 #: register / shared-memory report), for the chip smoke run to print
 build_log: Dict[str, str] = {}
+#: libraries loaded (and built where needed) in this process
+loads = LaunchCounter("kernels.loads")
 
 
 def nvcc() -> str:
@@ -103,4 +107,5 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(library_path(name)))
+            loads.add()
         return _libs[name]

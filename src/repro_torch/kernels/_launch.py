@@ -1,6 +1,7 @@
 """What every kernel wrapper of the port shares: a thread-safe launch
-counter, the check of the C launcher's return code, the card's SM count,
-and the meta route of the dry run.
+counter (``obs.LaunchCounter``, registered by the kernel's name), the
+check of the C launcher's return code, the card's SM count, and the meta
+route of the dry run.
 
 A wrapper sees one of three device kinds: the CPU (the plain version),
 CUDA (the kernel) and ``meta`` (the dry run, ``launch/dryrun.py``).  On
@@ -12,36 +13,15 @@ nothing: the launch counters stay as they are."""
 from __future__ import annotations
 
 import contextlib
-import threading
 from contextvars import ContextVar
 from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
+from ..obs import LaunchCounter  # noqa: F401
+
 _sms: Dict[int, int] = {}
 _LEDGERS: ContextVar[Tuple[Any, ...]] = ContextVar("repro_torch_cost_ledgers", default=())
-
-
-class LaunchCounter:
-    """Launches of one kernel.  The cluster runs workers on threads, so the
-    count is taken under a lock."""
-
-    def __init__(self) -> None:
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
 
 
 def check_launch(kernel: str, rc: int) -> None:

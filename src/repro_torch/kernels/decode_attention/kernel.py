@@ -39,7 +39,7 @@ from ... import _build
 from .._launch import LaunchCounter, check_launch, require_cuda, sm_count
 
 #: launches of the CUDA kernel, counted where it launches
-launches = LaunchCounter()
+launches = LaunchCounter("decode_attention_int8")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256

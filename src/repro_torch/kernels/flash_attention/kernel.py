@@ -32,7 +32,7 @@ from ... import _build
 from .._launch import LaunchCounter, book, check_launch, launch_device, sm_count
 
 #: launches of the CUDA kernel, counted where it launches
-launches = LaunchCounter()
+launches = LaunchCounter("flash_attention")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
@@ -281,7 +281,7 @@ def flash_attention(
 # ``repro.models.attention.blockwise_attention``.
 
 #: launches of the CUDA backward (one per call: its two or three kernels)
-bwd_launches = LaunchCounter()
+bwd_launches = LaunchCounter("flash_attention_bwd")
 
 #: the forward's lse of a row with no allowed key: its P is exp(s - 1e30) = 0
 LSE_EMPTY = 1e30

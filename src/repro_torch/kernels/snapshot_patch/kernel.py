@@ -17,7 +17,7 @@ from ... import _build
 from .._launch import LaunchCounter, check_launch, require_cuda
 
 #: launches of the CUDA kernel (both modes), counted where it launches
-launches = LaunchCounter()
+launches = LaunchCounter("snapshot_patch")
 
 _ADD_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}

@@ -38,9 +38,9 @@ from .._launch import LaunchCounter, book, check_launch, launch_device
 from .ref import check_length
 
 #: launches of the op, counted where it launches its kernels
-launches = LaunchCounter()
+launches = LaunchCounter("ssd_scan")
 #: launches of the backward
-bwd_launches = LaunchCounter()
+bwd_launches = LaunchCounter("ssd_scan_bwd")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 64

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import blocks as blocks_mod
+from .. import obs
 from ..device import DeviceLike, resolve_device
 from ..distrib.act import shard
 from .config import ModelConfig
@@ -68,23 +69,25 @@ class Model:
     # -- forward ------------------------------------------------------------
 
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        h = params["embed"]["table"][tokens.long()]
-        if self.cfg.embed_scale:
-            h = h * torch.full((), math.sqrt(self.cfg.d_model), dtype=h.dtype,
-                               device=h.device)
-        return shard(h, "batch", "seq", "embed")
+        with obs.span("model.embed"):
+            h = params["embed"]["table"][tokens.long()]
+            if self.cfg.embed_scale:
+                h = h * torch.full((), math.sqrt(self.cfg.d_model), dtype=h.dtype,
+                                   device=h.device)
+            return shard(h, "batch", "seq", "embed")
 
     def _logits_head(self, params, h: torch.Tensor) -> torch.Tensor:
-        W = (params["embed"]["table"] if self.cfg.tie_embeddings
-             else params["lm_head"]["w"])
-        h = h.to(W.dtype)  # residual stream may be f32
-        # float32 logits from any weight dtype: the products of bf16 values
-        # are exact in float32, so this is JAX's preferred_element_type=f32
-        if self.cfg.tie_embeddings:
-            logits = h.float() @ W.float().t()
-        else:
-            logits = h.float() @ W.float()
-        return softcap(logits, self.cfg.final_logit_softcap)
+        with obs.span("model.head"):
+            W = (params["embed"]["table"] if self.cfg.tie_embeddings
+                 else params["lm_head"]["w"])
+            h = h.to(W.dtype)  # residual stream may be f32
+            # float32 logits from any weight dtype: the products of bf16 values
+            # are exact in float32, so this is JAX's preferred_element_type=f32
+            if self.cfg.tie_embeddings:
+                logits = h.float() @ W.float().t()
+            else:
+                logits = h.float() @ W.float()
+            return softcap(logits, self.cfg.final_logit_softcap)
 
     # -- whisper's encoder and the stacks' inputs -----------------------------
 

@@ -27,6 +27,7 @@ from torch.nn.functional import pad as _pad
 from torch.utils.checkpoint import checkpoint
 
 from . import blocks as blocks_mod
+from .. import obs
 from ..kernels.flash_attention import flash_attention_op
 from .attention import decode_attention
 from .config import LayerKind, ModelConfig
@@ -352,10 +353,11 @@ def apply_stack(cfg: ModelConfig, kinds, blocks_params: PyTree, h: torch.Tensor,
         aux = torch.zeros((), dtype=torch.float32, device=hh.device)
         for i, kind in enumerate(kinds):
             c_i = _index(cache[f"pos{i}"], r) if decode else None
-            hh, nc, a = apply_layer(cfg, kind, bp[f"pos{i}"], hh, positions=positions,
-                                    causal=causal, prefix_len=prefix_len, cross=cross,
-                                    cross_states=cross_states, cache=c_i, decode=decode,
-                                    pos=pos, make_cache=make_cache, cache_len=cache_len)
+            with obs.span("model.layer", layer=r * len(kinds) + i):
+                hh, nc, a = apply_layer(cfg, kind, bp[f"pos{i}"], hh, positions=positions,
+                                        causal=causal, prefix_len=prefix_len, cross=cross,
+                                        cross_states=cross_states, cache=c_i, decode=decode,
+                                        pos=pos, make_cache=make_cache, cache_len=cache_len)
             aux = aux + a
             if make_cache and nc is not None:
                 slot = caches.setdefault(f"pos{i}", {})

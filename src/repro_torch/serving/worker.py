@@ -16,7 +16,10 @@ the JAX worker:
 * bfloat16 leaves cross the registry as ``uint16`` bit patterns and are
   reinterpreted from the model template's dtype here (``convert``);
 * the exec window ends in ``torch.cuda.synchronize`` so ``exec_s`` is the
-  device's time, not the enqueue's.
+  device's time, not the enqueue's;
+* ``invoke`` marks each step of the request path with a span of the
+  recorder (``obs``, off unless enabled) and counts the bytes it copies to
+  the device and its device-wide waits.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..convert import params_to_flat, to_tensor
 from ..core import AccessLog, ColdStartMetrics, RestoredInstance, ZygoteRegistry
 from ..core.planner import PAPER_C220G5, StorageModel, predict_demand_paged
@@ -50,6 +54,21 @@ from .api import (
 from .policy import InstancePool, PoolPolicy
 
 PyTree = Any
+
+#: bytes the request path copies from the host to a CUDA device: tokens,
+#: leaves materialised on the host, the patch's diff rows and selectors
+h2d_bytes = obs.LaunchCounter("worker.h2d_bytes")
+#: the request path's device-wide waits on a CUDA device: the synchronise
+#: that ends ``exec_s`` and the blocking copy of the output to the host
+syncs = obs.LaunchCounter("worker.syncs")
+
+
+def _to_device(arr: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``to_tensor``, counting the bytes that cross to a CUDA device."""
+    t = to_tensor(arr, dtype, device)
+    if t.device.type == "cuda":
+        h2d_bytes.add(t.nbytes)
+    return t
 
 
 @dataclass
@@ -89,8 +108,8 @@ def device_patch(base: torch.Tensor, rows2d: np.ndarray, sel: np.ndarray,
         flat = torch.cat([flat, flat.new_zeros(n * chunk_bytes - total)])
     out = patch_apply_op(
         flat.reshape(n, chunk_bytes),
-        to_tensor(rows2d, torch.uint8, dev),
-        to_tensor(sel, torch.int32, dev),
+        _to_device(rows2d, torch.uint8, dev),
+        _to_device(sel, torch.int32, dev),
         mode="replace",
     )
     return out.reshape(-1)[:total].view(base.dtype).reshape(base.shape)
@@ -289,7 +308,8 @@ class Worker:
         rows2d = ma.patch.rows_2d()
         if rows2d.shape[0] == 0:
             return None
-        out = device_patch(base_dev, rows2d, ma.patch.sel, ma.meta.chunk_bytes)
+        with obs.span("worker.patch"):
+            out = device_patch(base_dev, rows2d, ma.patch.sel, ma.meta.chunk_bytes)
         ma._dev = out
         return out
 
@@ -329,13 +349,17 @@ class Worker:
                 arr = ma.ensure_rows(rows[path], inst.metrics)
             else:
                 arr = inst.value(path)
-            return to_tensor(arr, t.dtype, self.device)
+            return _to_device(arr, t.dtype, self.device)
 
         return rec(template, "")
 
     def invoke(self, request: InvocationRequest) -> InvocationResult:
         """Typed request path: warm-pool lookup, cold start, execution, pool
         re-admission."""
+        with obs.request("worker.invoke", function=request.function) as root:
+            return self._invoke(request, root)
+
+    def _invoke(self, request: InvocationRequest, root) -> InvocationResult:
         fn = request.function
         opts = request.options
         if self.faults is not None:
@@ -351,19 +375,22 @@ class Worker:
         if opts.prefetch:
             self.prefetch_function(fn, opts.prefetch_category)
         t0 = time.perf_counter()
-        inst = None if opts.force_cold else self.pool.get(fn)
+        with obs.span("worker.lookup"):
+            inst = None if opts.force_cold else self.pool.get(fn)
         cold = inst is None
+        root.set(cold=cold)
         if cold:
-            self.pool.drop(fn)
-            loaders = self._loaders(spec)
-            inst = self.registry.cold_start(
-                fn, strategy.value,
-                residual_init=lambda ds: {**ds, "kv_ready": True},
-                engine=opts.engine,
-                promote=opts.promote,
-                demand_paged=demand_paged,
-                **loaders,
-            )
+            with obs.span("worker.restore"):
+                self.pool.drop(fn)
+                loaders = self._loaders(spec)
+                inst = self.registry.cold_start(
+                    fn, strategy.value,
+                    residual_init=lambda ds: {**ds, "kv_ready": True},
+                    engine=opts.engine,
+                    promote=opts.promote,
+                    demand_paged=demand_paged,
+                    **loaders,
+                )
         boot = time.perf_counter() - t0
 
         te = time.perf_counter()
@@ -374,13 +401,18 @@ class Worker:
         if "embed/table" in spec.touched_rows or "embed/table" in spec.variant \
                 or (spec.delta is not None and "embed/table" in spec.delta):
             req_rows["embed/table"] = np.unique(np.asarray(request.tokens))
-        params = self._params_for(spec, inst, req_rows, record_log=record_log)
-        tokens = to_tensor(np.asarray(request.tokens, np.int32), torch.int32,
-                           self.device)
-        with torch.no_grad():
+        with obs.span("worker.params"):
+            params = self._params_for(spec, inst, req_rows, record_log=record_log)
+        with obs.span("worker.tokens"):
+            tokens = _to_device(np.asarray(request.tokens, np.int32), torch.int32,
+                                self.device)
+        cuda = self.device.type == "cuda"
+        with torch.no_grad(), obs.span("worker.forward"):
             logits = self._fwd[spec.family](params, tokens)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with obs.span("worker.sync"):
+            if cuda:
+                torch.cuda.synchronize(self.device)
+                syncs.add()
         if spec.exec_sleep_s > 0.0:
             time.sleep(spec.exec_sleep_s)  # emulated handler I/O wait
         exec_s = time.perf_counter() - te
@@ -391,15 +423,20 @@ class Worker:
         if record_log is not None:
             inst.attach_access_log(None)
             self.registry.record_access(fn, record_log)
-
         # charge host buffers AND cached patched device copies (ma._dev) to
         # the pool budget: a warm patchable instance pins a device copy
-        nbytes = sum(
-            a.meta.nbytes * (2 if a._dev is not None else 1)
-            for a in inst.arrays.values()
-        )
-        pooled = self.pool.put(fn, inst, nbytes,
-                               cost=self.predicted_cost(fn, strategy))
+        with obs.span("worker.pool_put"):
+            nbytes = sum(
+                a.meta.nbytes * (2 if a._dev is not None else 1)
+                for a in inst.arrays.values()
+            )
+            pooled = self.pool.put(fn, inst, nbytes,
+                                   cost=self.predicted_cost(fn, strategy))
+        # the host copy waits for the stream, so it belongs in latency_s
+        with obs.span("worker.output"):
+            output = logits[:, -1, :8].float().cpu().numpy()
+            if cuda:
+                syncs.add()
         m: Optional[ColdStartMetrics] = inst.metrics if cold else None
         return InvocationResult(
             function=fn, cold=cold, requested=Strategy.coerce(opts.strategy),
@@ -407,7 +444,7 @@ class Worker:
             latency_s=time.perf_counter() - t0, boot_s=boot if cold else 0.0,
             exec_s=exec_s, pooled=pooled, worker_id=self.worker_id,
             metrics=m,
-            output=logits[:, -1, :8].float().cpu().numpy(),
+            output=output,
             fault_recovered=bool(
                 m is not None and (m.read_retries or m.repaired_chunks)
             ),

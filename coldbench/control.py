@@ -26,7 +26,7 @@ import inputs  # noqa: E402
 import spec  # noqa: E402
 import traffic  # noqa: E402
 from harness import variant_weights  # noqa: E402
-from reference import Reference, logit_gap  # noqa: E402
+from reference import logit_gap  # noqa: E402
 
 
 def requests_of(wl, seed, n):
@@ -50,6 +50,7 @@ def control_gap(cell, seed, device, base=HERE, n=None):
 
     wl = spec.load_workload(cell, base)
     cfgd = spec.load_config(wl["config"], base)
+    Reference = spec.load_model(wl["config"], base).Reference
     cfg = ModelConfig(name=cfgd["name"], **spec.model_fields(cfgd))
     dev = torch.device(device)
     flat = inputs.flatten(inputs.make_base(build_params, cfg, seed, dev))

@@ -37,7 +37,7 @@ import devtrace
 import inputs
 import spec
 import traffic
-from reference import Reference, logit_gap
+from reference import logit_gap
 
 #: a request that has not come back this long after the window's close is lost
 DRAIN_S = 60.0
@@ -80,6 +80,8 @@ class Ctx:
     chunk_bytes: int
     peak_bytes: int                     # the allocator's peak over the window
     trace: Optional[devtrace.Summary]
+    cfg_mod: Any                        # the configuration's module (``spec.load_model``)
+    spans: Optional[Dict[str, Any]]     # ``obs.drain()`` where a reader sets SPANS
 
 
 def pct(values: Sequence[float], q: float) -> float:
@@ -112,11 +114,15 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *,
     """Run ``cell`` once.  ``base`` holds the configurations and workloads;
     ``per_layer`` names the metrics read in a traced run, from
     ``metrics_base`` (``base`` unless given); ``tamper(cluster, cfg)``
-    breaks the timed path (tests of the check)."""
+    breaks the timed path (tests of the check).  A traced run turns the
+    port's recorder on over the window where one of the readers sets
+    ``SPANS``, and hands them what it drained as ``Ctx.spans``."""
     t_start = time.perf_counter() if t_start is None else t_start
-    P = _program()
     wl = spec.load_workload(cell, base)
     cfgd = spec.load_config(wl["config"], base)
+    cfg_mod = spec.load_model(wl["config"], base)
+    readers = {name: spec.load_metric(name, metrics_base or base) for name in per_layer}
+    P = _program()
     cfg = P["ModelConfig"](name=cfgd["name"], **spec.model_fields(cfgd))
     model = P["Model"](cfg)
     dev = torch.device(device)
@@ -189,7 +195,13 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *,
         setup_s = time.perf_counter() - t_start
 
         # -- the measured window -------------------------------------------
-        tracer = devtrace.DeviceTrace(cuda) if trace else None
+        tracer = None
+        if trace:
+            if any(getattr(m, "SPANS", False) for m in readers.values()):
+                import hostspans  # it imports this module
+                tracer = hostspans.SpanTrace(cuda)
+            else:
+                tracer = devtrace.DeviceTrace(cuda)
         if tracer is not None:
             devtrace.wrap_invoke(cluster.workers[0], tracer.spans)
             t0 = tracer.start()
@@ -210,16 +222,17 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *,
         ctrl.shutdown()
         _collect(recs, futs, P["ShedError"])
         summary = tracer.summary() if tracer is not None else None
+        spans = getattr(tracer, "recorded", None)
         del tracer
 
         # -- end-to-end and per-layer metrics ----------------------------------
         e2e = {**end_to_end(recs, seconds, t_end), "setup_s": (setup_s, "s")}
         ctx = Ctx(cell=cell, cfg=cfgd, wl=wl, seconds=seconds, t0=t0, t_end=t_end,
                   records=recs, functions=fn_info, chunk_bytes=chunk_bytes,
-                  peak_bytes=peak, trace=summary)
+                  peak_bytes=peak, trace=summary, cfg_mod=cfg_mod, spans=spans)
         layer = {}
-        for name in per_layer:
-            v = spec.load_reader(name, metrics_base or base)(ctx)
+        for name, reader in readers.items():
+            v = reader.read(ctx)
             if v is not None:
                 layer[name] = v
     finally:
@@ -237,7 +250,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.empty_cache()
     window = sample(recs, int(wl["check"]["sample"]), seed)
     picked = first + window if window else []  # a window that served nothing fails
-    checks = _check(cfgd, wl, recs, picked, ref_base, ref_delta, request, dev)
+    checks = _check(cfg_mod.Reference(cfgd), wl, recs, picked, ref_base, ref_delta,
+                    request, dev)
     out = {"correct": all(c["value"] <= c["limit"] for c in checks.values()),
            "attempted": len(recs), "failed": sum(1 for r in recs if not r.ok),
            "e2e": e2e, "per_layer": layer, "peak_bytes": peak, "checks": checks,
@@ -379,14 +393,13 @@ def variant_weights(ref_base, delta, dev) -> Dict[str, torch.Tensor]:
     return {k: (delta[k] if k in delta else v).to(dev) for k, v in ref_base.items()}
 
 
-def _check(cfgd, wl, recs, picked, ref_base, ref_delta, request, dev) -> Dict[str, Dict]:
+def _check(ref, wl, recs, picked, ref_base, ref_delta, request, dev) -> Dict[str, Dict]:
     """The numbers compared, each with its limit: the widest logit gap of
-    the ``picked`` outputs against the reference, and the window's requests
-    whose answer never came or came as an error (shed ones are counted as
-    failed, not as wrong)."""
+    the ``picked`` outputs against the configuration's reference ``ref``,
+    and the window's requests whose answer never came or came as an error
+    (shed ones are counted as failed, not as wrong)."""
     lost = sum(1 for r in recs if not r.ok and not r.shed)
     checks = {"lost": {"value": float(lost), "limit": 0.0}}
-    ref = Reference(cfgd)
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     gap, weights, cur = 0.0, None, None

@@ -1,6 +1,7 @@
 """The check that decides ``correct``: the reference agrees with the port,
 sound runs pass, and the control and every fault the cells can have fail."""
 
+import json
 
 import pytest
 import torch
@@ -12,7 +13,7 @@ import harness
 import inputs
 import spec
 import traffic
-from reference import Reference, logit_gap
+from reference import logit_gap
 
 
 def _tiny(name, **over):
@@ -22,7 +23,7 @@ def _tiny(name, **over):
     return cfgd, ModelConfig(name=cfgd["name"], **spec.model_fields(cfgd))
 
 
-@pytest.mark.parametrize("name", ["tiny-dense", "tiny-ssm"])
+@pytest.mark.parametrize("name", ["tiny-dense", "tiny-ssm", "tiny-hybrid"])
 def test_reference_matches_the_port_in_float32(name):
     from repro_torch.models import Batch, Model
     from repro_torch.models.transformer import build_params
@@ -32,12 +33,12 @@ def test_reference_matches_the_port_in_float32(name):
     toks = torch.from_numpy(traffic.tokens(cfg.vocab_size, 2, 96, 5))
     with torch.no_grad():
         port = Model(cfg).logits(tree, Batch(tokens=toks))[:, -1]
-    ref = Reference(cfgd).last_logits(inputs.flatten(tree), toks)
+    ref = spec.load_model(name, DATA).Reference(cfgd).last_logits(inputs.flatten(tree), toks)
     assert logit_gap(port.numpy(), ref) < 1e-4
     assert logit_gap(port[:, :8].numpy(), ref) < 1e-4
 
 
-@pytest.mark.parametrize("cell", ["tiny-dense.cold", "tiny-ssm.warm"])
+@pytest.mark.parametrize("cell", ["tiny-dense.cold", "tiny-ssm.warm", "tiny-hybrid.warm"])
 def test_sound_runs_pass_and_the_float8_control_fails(cell):
     out = harness.run_cell(cell, 77, 1.0, False, device="cpu", base=DATA)
     assert out["correct"], out["checks"]
@@ -88,10 +89,27 @@ def restore_left_at_the_base(cluster, cfgd):
     w._params_for = lambda spec_, inst, *a, **k: _unflatten(w._pool_dev[spec_.family])
 
 
-@pytest.mark.parametrize("cell", ["tiny-dense.cold", "tiny-ssm.warm"])
+@pytest.mark.parametrize("cell", ["tiny-dense.cold", "tiny-ssm.warm", "tiny-hybrid.warm"])
 @pytest.mark.parametrize("fault", [token_altered, half_the_batch, restore_left_at_the_base])
 def test_a_broken_timed_path_is_not_correct(cell, fault):
     out = harness.run_cell(cell, 78, 1.0, False, device="cpu", base=DATA, tamper=fault)
     assert not out["correct"]
     c = out["checks"]["logit_err"]
     assert c["value"] > c["limit"]
+
+
+def test_a_configuration_without_its_module_stops_before_set_up(tmp_path, monkeypatch):
+    base = tmp_path / "bench"
+    (base / "configs").mkdir(parents=True)
+    (base / "workloads").mkdir()
+    cfg = spec.load_config("tiny-ssm", DATA)
+    (base / "configs" / "tiny-ssm.json").write_text(json.dumps(cfg))
+    wl = spec.load_workload("tiny-ssm.warm", DATA)
+    (base / "workloads" / "tiny-ssm.warm.json").write_text(json.dumps(wl))
+
+    def no_set_up(*a, **k):
+        raise AssertionError("set-up began")
+    monkeypatch.setattr(inputs, "make_base", no_set_up)
+    monkeypatch.setattr(harness, "_program", no_set_up)
+    with pytest.raises(FileNotFoundError, match=r"configs/tiny-ssm\.py"):
+        harness.run_cell("tiny-ssm.warm", 5, 1.0, False, device="cpu", base=str(base))

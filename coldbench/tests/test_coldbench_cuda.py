@@ -20,6 +20,7 @@ def card():
 @pytest.mark.parametrize("cell,metrics", [
     ("tiny-dense.cold", ["patch_roofline_pct", "idle_pct", "cold_pct"]),
     ("tiny-ssm.warm", ["ssd_scan_roofline_pct", "idle_pct", "exec_ms.p50"]),
+    ("tiny-hybrid.warm", ["flash_roofline_pct", "ssd_scan_roofline_pct", "fwd_mfu_pct"]),
 ])
 def test_a_tiny_cell_on_the_card_is_correct_and_traced(card, cell, metrics):
     out = harness.run_cell(cell, 31, 1.0, True, device="cuda", base=DATA,

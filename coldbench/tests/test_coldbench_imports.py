@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from conftest import BENCH, DATA, ROOT
 
 BANNED = {"jax", "jaxlib", "flax", "repro"}
@@ -34,10 +36,18 @@ def test_no_module_of_the_benchmark_imports_jax_or_the_jax_package():
     assert not found, found
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    mods = set(_imports(os.path.join(BENCH, "reference.py")))
-    assert mods and not {m for m in mods if m.split(".")[0] in BANNED | {"repro_torch"}}
-    assert not {m for m in mods if m.split(".")[0] in {"harness", "inputs", "devtrace"}}
+@pytest.mark.parametrize("path", ["reference.py", "configs", "tests/data/configs"])
+def test_the_reference_imports_nothing_of_the_program(path):
+    """Neither ``reference.py`` nor a configuration's module (which holds
+    its reference and counts) imports the program or the harness."""
+    full = os.path.join(BENCH, path)
+    files = ([full] if full.endswith(".py") else
+             [os.path.join(full, f) for f in sorted(os.listdir(full)) if f.endswith(".py")])
+    assert files
+    for f in files:
+        mods = set(_imports(f))
+        assert mods and not {m for m in mods if m.split(".")[0] in BANNED | {"repro_torch"}}, f
+        assert not {m for m in mods if m.split(".")[0] in {"harness", "inputs", "devtrace"}}, f
 
 
 def test_a_run_loads_neither_jax_nor_the_jax_package():

@@ -42,6 +42,9 @@ def test_every_name_finds_its_file():
     for c in man["configs"]:
         assert c["file"] == f"coldbench/configs/{c['name']}.json"
         assert spec.load_config(c["name"])["reduced"] == c["reduced"]
+        mod = spec.load_model(c["name"])
+        assert all(callable(getattr(mod, f, None))
+                   for f in ("Reference", "forward_flops", "kernel_calls")), c["name"]
     for w in man["workloads"]:
         wl = spec.load_workload(w["name"])
         assert wl["config"] == w["config"] and w["name"] == f"{w['config']}.{w['traffic']}"

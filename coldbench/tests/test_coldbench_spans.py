@@ -14,6 +14,7 @@ from torch.profiler import record_function
 
 from conftest import BENCH, DATA
 
+import harness
 import hostspans
 from repro_torch import obs
 from repro_torch.obs import Span
@@ -248,3 +249,36 @@ def test_an_untraced_cpu_run_with_one_lane_at_a_time_in_the_forward():
     assert obs.span("x") is obs.span("y")
     from repro_torch.serving.worker import Worker
     assert Worker.register_runtime.__name__ == "register_runtime"
+
+
+@pytest.mark.parametrize("spans", [True, False])
+def test_a_reader_that_sets_spans_turns_the_recorder_on(tmp_path, spans):
+    """A traced run hands a reader that sets ``SPANS`` the recorder's spans;
+    without one, ``ctx.spans`` is None and the recorder is off all through
+    the window."""
+    metrics = tmp_path / "metrics"
+    metrics.mkdir()
+    (metrics / "got.py").write_text(
+        ("SPANS = True\n" if spans else "")
+        + "def read(ctx):\n"
+        "    return -1.0 if ctx.spans is None else float(len(ctx.spans['spans']))\n")
+    recording = []
+
+    def watch(cluster, cfg):
+        w = cluster.workers[0]
+        inner = w.invoke
+
+        def invoke(req):
+            recording.append(obs.span("x") is not obs.span("y"))
+            return inner(req)
+        w.invoke = invoke
+
+    out = harness.run_cell("tiny-ssm.warm", 6, 1.0, True, device="cpu", base=DATA,
+                           metrics_base=str(tmp_path), per_layer=["got"], tamper=watch)
+    assert out["correct"], out["checks"]
+    assert recording and all(r == spans for r in recording)
+    if spans:
+        assert out["per_layer"]["got"] > 0
+    else:
+        assert out["per_layer"]["got"] == -1.0
+    assert obs.span("x") is obs.span("y")
